@@ -1,34 +1,50 @@
 #!/usr/bin/env python3
 """On-card smoke run of starky_bn254_tpu_torch, the PyTorch + CUDA port.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--proves N]
 
 Needs one CUDA card and nvcc (the kernels build from
 starky_bn254_tpu_torch/csrc/ at first use). Phases, each printing its own
 lines; any failure raises and the exit code is non-zero:
 
-1. device: the card's name and power limit (nvidia-smi);
-2. build: the three kernels, timed;
+1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
+2. build: the three kernels, one nvcc per source side by side, timed;
+   ptxas's registers and spills for every kernel entry (a K3 entry that
+   spills fails the run); the integer instructions of one NTT butterfly,
+   one Keccak round and one Poseidon round, counted in the SASS of
+   csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
    on the card, at the main path's shapes; exact equality (all arithmetic
-   is exact mod p), kernel and plain times;
+   is exact mod p); kernel and plain times; each kernel's bound, the larger
+   of its compulsory bytes over the HBM rate and its integer instructions
+   over the int32 rate (SMs x 64 lanes x the maximum SM clock), and which of
+   the two it is. K3 also runs at the challenger's shapes, in both state
+   layouts and under a dense-MDS parameter set, and a row sweep times the
+   two layouts against each other (the crossover behind
+   poseidon.COOP_MAX_ROWS);
 4. fidelity: FqMulAir(256) under test_config (the JAX package's fixture
    statement) must reproduce tests/fixtures/fq_mul_256_test_config.npz byte
    for byte; the seed-7 digest and the keccak test-config digest pinned by
    the CPU tests must match;
 5. slice: FqMulAir(65536) (812 trace + 888 permutation columns) under
-   standard_fast_config("keccak"): trace generation, a first and a warm
-   prove, verify, a tampered opening rejected; phase table, times, proof
-   size and each kernel's launch count on this path (all must be > 0);
-6. the kernel JSON line, then the result line.
+   standard_fast_config("keccak"): trace generation, a first prove through
+   `prove`'s default device (the card) with every kernel's launch count
+   reset just before and read just after (all must be > 0), N warm proves
+   (median time and phase table), verify, a tampered opening rejected, then
+   torch.profiler over one more warm prove: device busy share and kernel
+   time by name;
+6. the kernel JSON line, the card's line, then the result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -36,6 +52,8 @@ FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_mul_256_test_config.npz")
 SEED7_DIGEST = "10cb158ab61caf68"
 KECCAK_DIGEST = "d9399851e8b42e5a"
 SLICE_ROWS = 1 << 16
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+INT32_LANES_PER_SM = 64
 
 KERNELS = {  # name -> (module attribute holding the launch count, source, replaces)
     "ntt": ("ntt", "starky_bn254_tpu_torch/csrc/ntt.cu",
@@ -45,6 +63,10 @@ KERNELS = {  # name -> (module attribute holding the launch count, source, repla
     "poseidon_sponge_and_grind": ("poseidon", "starky_bn254_tpu_torch/csrc/poseidon.cu",
                                   "starky_bn254_tpu/pallas/poseidon_kernel.py:192"),
 }
+# kernel names in the profiler's trace, by the kernel they belong to
+TRACE_NAMES = {"ntt": ("ntt_pass_kernel",), "keccak_sponge": ("keccak_sponge_kernel",),
+               "poseidon_sponge_and_grind": ("poseidon_sponge_kernel", "poseidon_coop_kernel",
+                                             "poseidon_grind_kernel")}
 
 
 def fq_inputs(seed: int, count: int, p_bn: int):
@@ -87,6 +109,52 @@ def max_abs_err(a, b) -> float:
     return float(max(abs(x - y)))
 
 
+def check_equal(name, got, want) -> float:
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max |err| {err})")
+    return err
+
+
+class Bounds:
+    """A kernel's least time on this card: its compulsory bytes (each input
+    read once, each output written once) over the HBM rate, or its integer
+    instructions over the int32 rate, whichever is larger."""
+
+    def __init__(self, sms: int, sm_clock_mhz: float, ops: dict[str, int]):
+        self.int_ops_per_s = sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+        self.ops = ops
+        self.perm = 8 * ops["probe_poseidon_full_round"] + 22 * ops["probe_poseidon_partial_round"]
+
+    def __call__(self, nbytes: float, ops: float) -> dict:
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / self.int_ops_per_s * 1e3
+        kind = "bytes" if by_bytes >= by_ops else "operations"
+        return dict(bound_ms=max(by_bytes, by_ops), bound_by=kind, bound_kind=kind,
+                    bytes=nbytes, int_ops=ops)
+
+    def ntt(self, n: int, c: int, inverse: bool) -> dict:
+        log_n = n.bit_length() - 1
+        ops = n // 2 * log_n * c * self.ops["probe_ntt_butterfly"]
+        if inverse:
+            ops += n * c * self.ops["probe_gl_mul"]
+        return self(16 * n * c + 8 * n, ops)  # + the twiddle table
+
+    def keccak(self, rows: int, width: int) -> dict:
+        perms = width // 17 + 1  # full chunks + the padded block
+        return self(8 * rows * (width + 4), rows * perms * 24 * self.ops["probe_keccak_round"])
+
+    def poseidon(self, rows: int, perms_per_row: int, words_in: int, words_out: int) -> dict:
+        return self(8 * rows * (words_in + words_out), rows * perms_per_row * self.perm)
+
+
+def show(label: str, r: dict) -> None:
+    plain = f", plain {r['plain_ms']:.3f} ms" if r.get("plain_ms") is not None else ""
+    print(f"kernels: {label}: kernel {r['ms']:.3f} ms{plain}; bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['int_ops'] / 1e9:.3f} G int ops), "
+          f"bound share {100 * r['bound_ms'] / r['ms']:.0f} %", flush=True)
+
+
 def phase_device():
     import torch
 
@@ -95,22 +163,40 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} card(s)")
-    return smi
+    ).stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"device: {smi}; max SM clock {clock} MHz, {sms} SMs; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+    return smi, sms, float(clock)
 
 
-def phase_build():
+def phase_build(sms: int, clock_mhz: float) -> Bounds:
     from starky_bn254_tpu_torch import cuda_lib
 
     t0 = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)}")
+    spilled = []
+    for name, r in sorted(cuda_lib.ptxas_report().items()):
+        print(f"build: ptxas {name}: {r.get('registers')} registers, {r.get('stack')} B stack, "
+              f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads")
+        if "poseidon" in name and (r.get("spill_stores") or r.get("spill_loads")):
+            spilled.append(name)
+    if spilled:
+        raise AssertionError(f"K3 entries spill registers: {spilled}")
+    t0 = time.perf_counter()
+    ops = cuda_lib.sass_op_counts()
+    print(f"build: SASS integer instructions per unit ({time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(ops, sort_keys=True)}")
+    return Bounds(sms, clock_mhz, ops)
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, bounds: Bounds) -> dict:
     import numpy as np
     import torch
 
@@ -124,44 +210,92 @@ def phase_kernels(dev) -> dict:
 
     out = {}
 
-    def check(name, got, want):
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version (max |err| {err})")
-        return err
-
-    # K1: every main-path transform shape, both directions, plus 1-D and c = 2
+    # K1: every main-path transform shape, both directions, and a column slice
     errs = []
-    for shape in [(65536, 812), (131072, 888), (131072, 2), (131072,), (65536, 4)]:
+    for shape in [(65536, 812), (131072, 812), (65536, 888), (131072, 888), (131072, 2),
+                  (131072,), (65536, 4)]:
         x = field(*shape)
+        n, c = shape[0], (shape[1] if len(shape) > 1 else 1)
         for inverse in (False, True):
-            errs.append(check(f"ntt{shape} inverse={inverse}",
-                              ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse)))
-            print(f"kernels: ntt {shape} inverse={inverse}: equal", flush=True)
+            errs.append(check_equal(f"ntt{shape} inverse={inverse}",
+                                    ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse)))
+            before = ntt.LAUNCHES
+            ms = cuda_ms(lambda: ntt.ntt(x, inverse))
+            passes = (ntt.LAUNCHES - before) // 4
+            show(f"ntt {list(shape)} {'inverse' if inverse else 'forward'} ({passes} passes), equal",
+                 dict(ms=ms, **bounds.ntt(n, c, inverse)))
+    wide = field(65536, 900)
+    view = wide[:, 5:817]  # a column slice: the wrapper reads it in place (row stride 900)
+    for inverse in (False, True):
+        errs.append(check_equal("ntt column slice", ntt.ntt(view, inverse),
+                                ntt._ntt_plain(view.contiguous(), inverse)))
+    print("kernels: ntt [65536, 900][:, 5:817] (row stride 900): equal", flush=True)
+    del wide, view
     x = field(131072, 888)
-    out["ntt"] = dict(max_abs_err=max(errs), shape=[131072, 888],
-                      ms=cuda_ms(lambda: ntt.ntt(x)), plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1))
+    out["ntt"] = dict(max_abs_err=max(errs), shape=[131072, 888], ms=cuda_ms(lambda: ntt.ntt(x)),
+                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1), **bounds.ntt(131072, 888, False))
+    show("ntt [131072, 888] forward", out["ntt"])
     del x
 
     # K2: Merkle leaf hashing of the trace LDE
     leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, 812), dtype=np.uint64), dev)
-    err = check("keccak hash_no_pad", keccak.hash_no_pad(leaves),
-                keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+    err = check_equal("keccak hash_no_pad", keccak.hash_no_pad(leaves),
+                      keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
     out["keccak_sponge"] = dict(
         max_abs_err=err, shape=[131072, 812],
         ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
         plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST), 1),
+        **bounds.keccak(131072, 812),
     )
+    show("keccak hash_no_pad [131072, 812], equal", out["keccak_sponge"])
+    leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, 888), dtype=np.uint64), dev)
+    check_equal("keccak hash_no_pad [131072, 888]", keccak.hash_no_pad(leaves),
+                keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+    show("keccak hash_no_pad [131072, 888] (the Z-column leaves), equal",
+         dict(ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), **bounds.keccak(131072, 888)))
     del leaves
-    print("kernels: keccak hash_no_pad [131072, 812]: equal", flush=True)
 
-    # K3: sponge absorb over 8 rate chunks, and the 16-bit grind
+    out["poseidon_sponge_and_grind"] = phase_poseidon(dev, bounds, field)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_poseidon(dev, bounds: Bounds, field) -> dict:
+    import torch
+
+    from starky_bn254_tpu_torch import poseidon
+
+    errs = []
+    # the main path's calls, in the layout the wrapper picks: the challenger's
+    # vector digests (1 and 27 rows of 128 words), one compress, a
+    # [131072, 64] absorb (Merkle leaves), the 16-bit grind batch
+    timed = {}
+    for rows in (1, 27):
+        blk = field(rows, 128)
+        errs.append(check_equal(f"poseidon hash_no_pad [{rows}, 128]", poseidon.hash_no_pad(blk),
+                                poseidon._sponge_plain(None, blk, 4)))
+        timed[f"digest_{rows}"] = dict(
+            ms=cuda_ms(lambda: poseidon.hash_no_pad(blk), 20),
+            plain_ms=cuda_ms(lambda: poseidon._sponge_plain(None, blk, 4), 1),
+            form=poseidon._sponge_form(rows), **bounds.poseidon(rows, 16, 128, 4))
+        show(f"poseidon digest [{rows}, 128] ({poseidon._sponge_form(rows)} layout), equal",
+             timed[f"digest_{rows}"])
+    left, right = field(1, 4), field(1, 4)
+    errs.append(check_equal("poseidon compress", poseidon.compress(left, right),
+                            poseidon._sponge_plain(None, torch.cat([left, right], 1), 4)))
+    timed["compress_1"] = dict(ms=cuda_ms(lambda: poseidon.compress(left, right), 20),
+                               form=poseidon._sponge_form(1), **bounds.poseidon(1, 1, 8, 4))
+    show("poseidon compress [1, 4] + [1, 4], equal", timed["compress_1"])
     state, block = field(131072, 12), field(131072, 64)
-    err = check("poseidon sponge_absorb", poseidon.sponge_absorb(state, block),
-                poseidon._sponge_plain(state, block, poseidon.WIDTH))
-    sponge_ms = cuda_ms(lambda: poseidon.sponge_absorb(state, block))
-    sponge_plain_ms = cuda_ms(lambda: poseidon._sponge_plain(state, block, poseidon.WIDTH), 1)
-    print("kernels: poseidon sponge_absorb [131072, 64]: equal", flush=True)
+    errs.append(check_equal("poseidon sponge_absorb", poseidon.sponge_absorb(state, block),
+                            poseidon._sponge_plain(state, block, poseidon.WIDTH)))
+    timed["sponge_131072x64"] = dict(
+        ms=cuda_ms(lambda: poseidon.sponge_absorb(state, block)),
+        plain_ms=cuda_ms(lambda: poseidon._sponge_plain(state, block, poseidon.WIDTH), 1),
+        form=poseidon._sponge_form(131072), **bounds.poseidon(131072, 8, 64 + 12, 12))
+    show(f"poseidon sponge_absorb [131072, 64] ({poseidon._sponge_form(131072)} layout), equal",
+         timed["sponge_131072x64"])
+    del state, block
     bits = 16
     batch, threshold = 1 << (bits + 2), 1 << (64 - bits)
     for seed in (0x1234_5678_9ABC, 0x0F0F_F0F0_1234_5678):
@@ -170,25 +304,55 @@ def phase_kernels(dev) -> dict:
         want = poseidon._grind_plain(seed, start, batch, threshold, dev)
         if got != want:
             raise AssertionError(f"poseidon grind: kernel {got} != plain {want}")
-    print("kernels: poseidon grind 16 bits: equal", flush=True)
-    out["poseidon_sponge_and_grind"] = dict(
-        max_abs_err=err, shape=[batch, 12],  # the grind batch's states
-        ms=cuda_ms(lambda: poseidon.grind_batch(7, 0, batch, threshold, dev)),
-        plain_ms=cuda_ms(lambda: poseidon._grind_plain(7, 0, batch, threshold, dev), 1),
-        sponge_ms=sponge_ms, sponge_plain_ms=sponge_plain_ms,
-    )
-    for name, r in out.items():
-        print(f"kernels: {name} {r['shape']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
-    print(f"kernels: poseidon sponge_absorb [131072, 64]: kernel {sponge_ms:.3f} ms, "
-          f"plain {sponge_plain_ms:.3f} ms")
-    torch.cuda.empty_cache()
-    return out
+    grind = dict(ms=cuda_ms(lambda: poseidon.grind_batch(7, 0, batch, threshold, dev)),
+                 plain_ms=cuda_ms(lambda: poseidon._grind_plain(7, 0, batch, threshold, dev), 1),
+                 **bounds(8, batch * bounds.perm))  # reads nothing, writes one word
+    show(f"poseidon grind batch 2^{bits + 2} at {bits} bits, same nonce as plain", grind)
+
+    # both layouts, both MDS forms, against the plain version
+    try:
+        for params in ("default", "dense"):
+            if params == "dense":
+                poseidon.set_params(mds_row=(1 << 40, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37),
+                                    mds_diag=(0,) * 11 + (1 << 33,))
+            for rows in (1, 27, 4096):
+                blk, st = field(rows, 128), field(rows, 12)
+                for state, out_words in ((None, 4), (st, 12)):
+                    want = poseidon._sponge_plain(state, blk, out_words)
+                    for form in ("coop", "row"):
+                        errs.append(check_equal(f"poseidon {params} {form} [{rows}, 128]",
+                                                poseidon._sponge_cuda(state, blk, out_words, form),
+                                                want))
+            got = poseidon.grind_batch(3, 11, 1 << 16, 1 << 54, dev)
+            if got != poseidon._grind_plain(3, 11, 1 << 16, 1 << 54, dev):
+                raise AssertionError(f"poseidon grind ({params} MDS) disagrees with plain")
+            print(f"kernels: poseidon {params} MDS ({'small' if poseidon._small_mds() else 'dense'} "
+                  f"form): both layouts equal at rows 1, 27, 4096; grind equal", flush=True)
+    finally:
+        poseidon.set_params(seed=poseidon._DEFAULT_SEED, mds_row=poseidon.DEFAULT_MDS_ROW,
+                            mds_diag=(0,) * 12)
+
+    # the two layouts against each other over the row count
+    sweep = {}
+    for rows in (1, 27, 256, 1024, 2048, 4096, 6144, 8192, 12288, 16384):
+        blk = field(rows, 128)
+        sweep[rows] = {form: cuda_ms(lambda: poseidon._sponge_cuda(None, blk, 4, form), 10)
+                       for form in ("coop", "row")}
+        print(f"kernels: poseidon layouts at [{rows}, 128]: coop {sweep[rows]['coop']:.4f} ms, "
+              f"row {sweep[rows]['row']:.4f} ms", flush=True)
+    coop_wins = [r for r in sweep if sweep[r]["coop"] < sweep[r]["row"]]
+    last = max((r for r in coop_wins if all(q in coop_wins for q in sweep if q <= r)), default=0)
+    print(f"kernels: poseidon coop layout faster up to {last} rows of those swept; "
+          f"COOP_MAX_ROWS = {poseidon.COOP_MAX_ROWS}")
+    return dict(max_abs_err=max(errs), shape=[batch, 12], **grind,
+                **{f"{k}_{f}": v[f] for k, v in timed.items() for f in ("ms", "bound_ms")},
+                sweep={str(r): v for r, v in sweep.items()})
 
 
 def phase_fidelity(dev):
     import numpy as np
 
-    from starky_bn254_tpu_torch import bn254, xnp
+    from starky_bn254_tpu_torch import bn254
     from starky_bn254_tpu_torch.airs.fq_mul import FqMulAir
     from starky_bn254_tpu_torch.stark import FriConfig, StarkConfig, load_proof, proof_to_bytes, prove
     from starky_bn254_tpu_torch.stark.proof import proof_digest
@@ -196,13 +360,13 @@ def phase_fidelity(dev):
     air = FqMulAir(256)
     pi = np.zeros(0, dtype=np.uint64)
     cfg = StarkConfig.test_config()
-    trace42 = xnp.to_torch(air.generate_trace(fq_inputs(42, 250, bn254.P_BN)), dev)
-    got = proof_to_bytes(prove(air, trace42, pi, cfg))
+    trace42 = air.generate_trace(fq_inputs(42, 250, bn254.P_BN))  # numpy, moved by prove
+    got = proof_to_bytes(prove(air, trace42, pi, cfg, device=dev))
     if got != proof_to_bytes(load_proof(FIXTURE)):
         raise AssertionError("FqMulAir(256) test_config proof differs from the fixture")
     print(f"fidelity: FqMulAir(256) test_config proof == fixture ({len(got)} bytes)")
-    trace7 = xnp.to_torch(air.generate_trace(fq_inputs(7, 64, bn254.P_BN)), dev)
-    d7 = proof_digest(prove(air, trace7, pi, cfg))
+    trace7 = air.generate_trace(fq_inputs(7, 64, bn254.P_BN))
+    d7 = proof_digest(prove(air, trace7, pi, cfg, device=dev))
     if d7 != SEED7_DIGEST:
         raise AssertionError(f"seed-7 digest {d7} != {SEED7_DIGEST}")
     print(f"fidelity: seed-7 digest {d7}")
@@ -211,13 +375,66 @@ def phase_fidelity(dev):
         rate_bits=f.rate_bits, cap_height=f.cap_height, proof_of_work_bits=f.proof_of_work_bits,
         num_query_rounds=f.num_query_rounds, final_poly_bits=f.final_poly_bits,
         merkle_hash="keccak"))
-    dk = proof_digest(prove(air, trace42, pi, kcfg))
+    dk = proof_digest(prove(air, trace42, pi, kcfg, device=dev))
     if dk != KECCAK_DIGEST:
         raise AssertionError(f"keccak test-config digest {dk} != {KECCAK_DIGEST}")
     print(f"fidelity: keccak test-config digest {dk}")
 
 
-def phase_slice(dev) -> dict:
+def _phase_ms(tt) -> dict[str, float]:
+    """The TimingTree's scopes as {"a/b": ms}."""
+    flat = {}
+
+    def walk(node, prefix):
+        for c in node.get("children", []):
+            flat[prefix + c["name"]] = c["ms"]
+            walk(c, prefix + c["name"] + "/")
+
+    d = tt.as_dict()
+    flat["prove"] = d["ms"]
+    walk(d, "")
+    return flat
+
+
+def profile_prove(run) -> None:
+    """torch.profiler over one warm prove: kernel launches, kernel time and
+    the device busy share (kernel time over the host wall clock of the
+    prove), kernel time by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
+            name = e["name"].split("(")[0].split("<")[0].replace("void ", "").strip()
+            by_name.setdefault(name, []).append(e.get("dur", 0.0) / 1e3)
+    total_ms = sum(sum(v) for v in by_name.values())
+    launches = sum(len(v) for v in by_name.values())
+    if launches == 0:
+        raise AssertionError("the profiler saw no kernel on the card during a prove")
+    print(f"slice: profiled warm prove: {launches} kernel launches, {total_ms:.1f} ms of kernel time "
+          f"in {wall_s * 1e3:.1f} ms of wall clock: device busy {100 * total_ms / (wall_s * 1e3):.1f} %")
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    for name, durs in ranked[:12]:
+        print(f"slice: kernel {name}: {sum(durs):.2f} ms in {len(durs)} launches")
+    for kernel, names in TRACE_NAMES.items():
+        ms = sum(sum(by_name.get(n, [])) for n in names)
+        count = sum(len(by_name.get(n, [])) for n in names)
+        print(f"slice: {kernel} kernels: {ms:.3f} ms in {count} launches")
+
+
+def phase_slice(dev, proves: int) -> dict:
     import numpy as np
     import torch
 
@@ -233,27 +450,34 @@ def phase_slice(dev) -> dict:
     pi = np.zeros(0, dtype=np.uint64)
     t0 = time.perf_counter()
     trace_np = air.generate_trace(fq_inputs(0, SLICE_ROWS, bn254.P_BN))
-    trace = xnp.to_torch(trace_np, dev)
     tracegen_s = time.perf_counter() - t0
+    trace = xnp.to_torch(trace_np, dev)  # on the card before the timed proves
     print(f"slice: FqMulAir({SLICE_ROWS}) trace {tuple(trace.shape)}, "
           f"{len(air.permutation_pairs())} permutation pairs, tracegen {tracegen_s:.2f} s", flush=True)
 
+    torch.cuda.reset_peak_memory_stats(dev)
     for m in modules.values():
         m.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    prove(air, trace, pi, cfg)
+    prove(air, trace, pi, cfg)  # no device named: the card
     torch.cuda.synchronize()
     prove_first_s = time.perf_counter() - t0
-    tt = TimingTree("prove", dev)
-    t0 = time.perf_counter()
-    proof = prove(air, trace, pi, cfg, timing=tt)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
+    launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    times, phases = [], []
+    for _ in range(proves):
+        tt = TimingTree("prove", dev)
+        t0 = time.perf_counter()
+        proof = prove(air, trace, pi, cfg, timing=tt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        phases.append(_phase_ms(tt))
     t0 = time.perf_counter()
     ok = verify(air, proof, cfg)
     verify_s = time.perf_counter() - t0
-    launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     if ok is not True:
@@ -268,35 +492,43 @@ def phase_slice(dev) -> dict:
         print(f"slice: tampered opening rejected ({e})")
     else:
         raise AssertionError("a tampered opening was accepted")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
 
-    print("slice: warm prove phases")
-    print(tt.render())
+    print(f"slice: warm prove phases, median of {proves} (ms)")
+    for key in phases[0]:
+        vals = [p[key] for p in phases if key in p]
+        print(f"slice:   {statistics.median(vals):9.1f}  {key}")
     size = len(proof_to_bytes(proof))
-    print(f"slice: prove_first_s {prove_first_s:.3f} prove_s {prove_s:.3f} verify_s {verify_s:.3f} "
+    q = statistics.quantiles(times, n=4) if len(times) > 1 else times * 3
+    print(f"slice: prove_s median {statistics.median(times):.3f} (quartiles {q[0]:.3f} / {q[1]:.3f} / "
+          f"{q[2]:.3f}; {proves} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
           f"tracegen_s {tracegen_s:.3f} proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
-    print(f"slice: launches {json.dumps(launches)}")
+    print(f"slice: launches in the first prove {json.dumps(launches)}")
+    profile_prove(lambda: prove(air, trace, pi, cfg))
     return launches
 
 
 def main() -> int:
-    smi = phase_device()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--proves", type=int, default=5, help="warm proves of the slice (median)")
+    args = ap.parse_args()
+    smi, sms, clock = phase_device()
     import torch
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    kernel_stats = phase_kernels(dev)
+    bounds = phase_build(sms, clock)
+    kernel_stats = phase_kernels(dev, bounds)
     phase_fidelity(dev)
-    launches = phase_slice(dev)
+    launches = phase_slice(dev, args.proves)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = kernel_stats[name]
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"]))
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   bound_kind=r["bound_kind"], library_ms=None, shape=r["shape"])
+        row.update({k: v for k, v in r.items() if k not in row and k not in ("bytes", "int_ops")})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

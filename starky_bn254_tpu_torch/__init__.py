@@ -3,7 +3,8 @@ PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 Field elements are canonical Goldilocks u64 words held in int64 tensors
 (xnp.to_torch / xnp.to_numpy convert without changing a bit). `prove` runs
-on the trace's device; on a CUDA device the NTTs (csrc/ntt.cu), the Keccak
+on the CUDA card unless the caller names another device (`device="cpu"`);
+on a CUDA device the NTTs (csrc/ntt.cu), the Keccak
 and Poseidon sponges (csrc/keccak.cu, csrc/poseidon.cu) and the
 proof-of-work grind run as hand-written kernels, built with nvcc at first
 use. On the CPU the same modules run their plain torch versions. Proofs are

@@ -45,18 +45,7 @@ __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
   return gl_reduce128(__umul64hi(a, b), a * b);
 }
 
-// Launch shape shared by the row x column kernels: threads along the
-// (contiguous) column axis first so a warp reads neighbouring words, the
-// rest of the 256-thread block along rows; narrow matrices (c = 1, 2) still
-// fill the block with rows. Kernels grid-stride over both axes.
-static inline void gl_dims2(int64_t rows, int64_t cols, dim3* grid, dim3* block) {
-  int bx = 1;
-  while (bx < cols && bx < 256) bx <<= 1;
-  int by = 256 / bx;
-  int64_t gx = (cols + bx - 1) / bx;
-  int64_t gy = (rows + by - 1) / by;
-  if (gy > 65535) gy = 65535;
-  if (gy < 1) gy = 1;
-  *grid = dim3((unsigned)gx, (unsigned)gy);
-  *block = dim3(bx, by);
+// read-only cached load of one u64 word
+__device__ __forceinline__ uint64_t gl_ldg(const uint64_t* p) {
+  return (uint64_t)__ldg((const unsigned long long*)p);
 }

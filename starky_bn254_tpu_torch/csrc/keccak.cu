@@ -46,32 +46,34 @@ __device__ __forceinline__ uint64_t rol64(uint64_t v, int k) {
   return k == 0 ? v : ((v << k) | (v >> (64 - k)));
 }
 
-__device__ __forceinline__ void keccak_f(uint64_t a[25]) {
+__device__ __forceinline__ void keccak_round(uint64_t a[25], uint64_t rc) {
   constexpr int rho[25] = KECCAK_RHO;
-#pragma unroll 1
-  for (int r = 0; r < 24; r++) {
-    uint64_t c[5], d[5], b[25];
+  uint64_t c[5], d[5], b[25];
 #pragma unroll
-    for (int x = 0; x < 5; x++) c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+  for (int x = 0; x < 5; x++) c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
 #pragma unroll
-    for (int x = 0; x < 5; x++) d[x] = c[(x + 4) % 5] ^ rol64(c[(x + 1) % 5], 1);
+  for (int x = 0; x < 5; x++) d[x] = c[(x + 4) % 5] ^ rol64(c[(x + 1) % 5], 1);
 #pragma unroll
-    for (int i = 0; i < 25; i++) a[i] ^= d[i % 5];
-    // rho + pi: B[y, 2x + 3y] = rol(A[x, y])
+  for (int i = 0; i < 25; i++) a[i] ^= d[i % 5];
+  // rho + pi: B[y, 2x + 3y] = rol(A[x, y])
 #pragma unroll
-    for (int x = 0; x < 5; x++) {
+  for (int x = 0; x < 5; x++) {
 #pragma unroll
-      for (int y = 0; y < 5; y++) b[y + 5 * ((2 * x + 3 * y) % 5)] = rol64(a[x + 5 * y], rho[x + 5 * y]);
-    }
-    // chi
-#pragma unroll
-    for (int y = 0; y < 5; y++) {
-#pragma unroll
-      for (int x = 0; x < 5; x++)
-        a[x + 5 * y] = b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y]);
-    }
-    a[0] ^= KECCAK_RC[r];  // iota
+    for (int y = 0; y < 5; y++) b[y + 5 * ((2 * x + 3 * y) % 5)] = rol64(a[x + 5 * y], rho[x + 5 * y]);
   }
+  // chi
+#pragma unroll
+  for (int y = 0; y < 5; y++) {
+#pragma unroll
+    for (int x = 0; x < 5; x++)
+      a[x + 5 * y] = b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y]);
+  }
+  a[0] ^= rc;  // iota
+}
+
+__device__ __forceinline__ void keccak_f(uint64_t a[25]) {
+#pragma unroll 1
+  for (int r = 0; r < 24; r++) keccak_round(a, KECCAK_RC[r]);
 }
 
 __global__ void keccak_sponge_kernel(const uint64_t* __restrict__ state_in,

@@ -2,9 +2,17 @@
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded through ctypes: no PyTorch headers, so the build
-takes seconds. It happens at first use (never at import) into `_build/`
-next to this file, named by a digest of the sources and flags, so an edited
-kernel is rebuilt and an unchanged one is reused within a checkout.
+takes seconds. Each source compiles in its own nvcc process, all started
+together, then one link. It happens at first use (never at import) into
+`_build/` next to this file, named by a digest of the sources and flags, so
+an edited kernel is rebuilt and an unchanged one is reused within a
+checkout. ptxas's register and spill report (-Xptxas -v) is kept beside the
+library (`ptxas_report`).
+
+`sass_op_counts` compiles csrc/sass_probes.cu (one butterfly, one Keccak
+round, one Poseidon round, with the library's flags) and counts their
+integer instructions with cuobjdump: the operation counts of the kernels'
+bounds.
 
 There is no fallback: a missing nvcc, a failed build or a failed launch
 raises. Callers reach this module only for CUDA tensors.
@@ -15,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -25,10 +34,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("ntt.cu", "keccak.cu", "poseidon.cu")
 HEADERS = ("goldilocks.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+PROBES = "sass_probes.cu"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+NVCC_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -36,28 +44,46 @@ _U64 = ctypes.c_uint64
 _INT = ctypes.c_int
 
 _SIGNATURES = {
-    "starky_ntt": (_P, _I64, _P, _I64, _I64, _P, _U64, _INT, _P),
+    "starky_ntt_pass": (_P, _I64, _P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _P, _U64, _INT,
+                        _INT, _P),
     "starky_keccak_sponge": (_P, _P, _I64, _I64, _I64, _INT, _P, _INT, _P),
-    "starky_poseidon_sponge": (_P, _P, _I64, _I64, _I64, _P, _P, _P, _INT, _P),
-    "starky_poseidon_grind": (_U64, _U64, _I64, _U64, _P, _P, _P, _P),
+    "starky_poseidon_sponge": (_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _INT, _INT, _INT, _P),
+    "starky_poseidon_grind": (_U64, _U64, _I64, _U64, _P, _P, _P, _INT, _P, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str) -> str:
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built")
     return path
 
 
-def library_path() -> str:
+def _digest(names) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in names:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libstarky_kernels-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libstarky_kernels-{_digest(SOURCES + HEADERS)}.so")
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side; raise on the first failure. Returns
+    each one's output (ptxas -v writes its report there)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> str:
@@ -67,16 +93,75 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
-    cmd += [os.path.join(CSRC, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _tool("nvcc")
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                     for s, o in zip(SOURCES, objs)])
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", f"{tmp}.so", *objs]])
+    with open(f"{out}.ptxas.txt", "w") as f:
+        f.write("".join(logs))
+    for o in objs:
+        os.remove(o)
+    os.replace(f"{tmp}.so", out)
     return out
+
+
+def ptxas_report() -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
+    from the build's -Xptxas -v log."""
+    with open(f"{build()}.ptxas.txt") as f:
+        log = f.read()
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+# SASS opcodes that are no integer operation of the arithmetic: memory,
+# control, moves and constant/special-register reads
+_NOT_OPS = ("LD", "ST", "ATOM", "RED", "BRA", "EXIT", "RET", "CALL", "NOP", "BAR", "S2R", "S2UR",
+            "CS2R", "MOV", "IMAD.MOV", "U", "LDC", "BSSY", "BSYNC", "WARPSYNC", "YIELD", "DEPBAR",
+            "MEMBAR", "CCTL", "SHFL", "VOTE")
+
+
+def sass_op_counts() -> dict[str, int]:
+    """Integer instructions in the SASS of each probe kernel of
+    csrc/sass_probes.cu ({probe name: count}), compiled with the library's
+    flags and read back with cuobjdump -sass."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(BUILD_DIR, f"sass_probes-{_digest(SOURCES + HEADERS + (PROBES,))}.cubin")
+    if not os.path.exists(cubin):
+        _run_all([[_tool("nvcc"), *ARCH_FLAGS, "-cubin", "-o", cubin, os.path.join(CSRC, PROBES)]])
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is not None and m and not m.group(1).startswith(_NOT_OPS):
+            counts[name] += 1
+    return {k: v for k, v in counts.items() if k.startswith("probe_")}
 
 
 def lib() -> ctypes.CDLL:

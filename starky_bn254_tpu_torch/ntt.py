@@ -1,11 +1,13 @@
 """Number-theoretic transform and low-degree extension over Goldilocks.
 
 `ntt` is the wrapper of kernel K1 (csrc/ntt.cu): on a CUDA tensor every
-call, 1-D input included, launches the hand-written kernel; on a CPU tensor
-it runs `_ntt_plain`, the same radix-2 DIT ladder written in torch ops
-(bit-reversal gather, then log2(n) butterfly stages). Both give exactly the
-JAX package's ntt._ntt_xla output: an NTT's values do not depend on the
-algorithm, and all arithmetic is exact mod p.
+call, 1-D input included, launches the hand-written kernel once per pass of
+`_pass_plan` (two passes up to n = 2^(2t)); on a CPU tensor it runs
+`_ntt_plain`, the radix-2 DIT ladder written in torch ops (bit-reversal
+gather, then log2(n) butterfly stages). Both give exactly the JAX package's
+ntt._ntt_xla output: the kernel runs the same butterflies on the same
+twiddles, only grouped into shared-memory tiles, and all arithmetic is
+exact mod p.
 
 All transforms are batched over a trailing column axis: the trace is
 `[rows, cols]` and one call transforms every column. Coset LDE evaluates on
@@ -15,6 +17,7 @@ All transforms are batched over a trailing column axis: the trace is
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -22,7 +25,12 @@ import torch
 from . import goldilocks as gl
 from . import xnp
 
-LAUNCHES = 0  # K1 launches (one per ntt call on a CUDA tensor)
+LAUNCHES = 0  # K1 kernel launches (one per pass of each ntt call on a CUDA tensor)
+
+# K1's shared-memory tile, in u64 words (64 KB: three blocks fit on an SM),
+# and its widest column slab (16 words: a 128-byte row segment)
+TILE_WORDS = 1 << 13
+MAX_LOG_W = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +82,87 @@ def _log2_exact(n: int) -> int:
     return log_n
 
 
+@dataclass(frozen=True)
+class NttPass:
+    """One launch of K1: DIT stages [s_lo, s_hi) of a size-2^log_n NTT.
+
+    Those stages only pair rows that agree in their low s_lo bits and in
+    their bits from s_hi up, so the rows
+        i = hi * 2^s_hi + mid * 2^s_lo + lo,   mid in [0, 2^(s_hi - s_lo))
+    form an independent sub-transform for each (hi, lo). A block loads one
+    tile: G = 2^(s_hi - s_lo) rows `mid` x R = 2^log_r consecutive `lo`
+    x W = 2^log_w consecutive columns, runs the stages in shared memory
+    and writes the tile back. The first pass also gathers its rows from the
+    bit-reversed source rows (and applies the inverse's 1/n scale)."""
+
+    s_lo: int
+    s_hi: int
+    log_r: int
+    log_w: int
+
+    @property
+    def log_tile_rows(self) -> int:  # log2(G * R)
+        return self.s_hi - self.s_lo + self.log_r
+
+    def n_groups(self, log_n: int) -> int:
+        """Tiles along the rows (each spans every column slab)."""
+        return 1 << (log_n - self.log_tile_rows)
+
+    def tile_rows(self, g: np.ndarray) -> np.ndarray:
+        """Row indices [len(g), G, R] of the tiles `g` (the kernel's
+        blockIdx / n_slabs): hi = g >> (s_lo - log_r), and the tile's
+        first lo = (g mod 2^(s_lo - log_r)) * R."""
+        g = np.asarray(g, dtype=np.int64)[:, None, None]
+        lo_bits = self.s_lo - self.log_r
+        hi = g >> lo_bits
+        lo_base = (g & ((1 << lo_bits) - 1)) << self.log_r
+        mid = np.arange(1 << (self.s_hi - self.s_lo), dtype=np.int64)[None, :, None]
+        r = np.arange(1 << self.log_r, dtype=np.int64)[None, None, :]
+        return (hi << self.s_hi) + (mid << self.s_lo) + lo_base + r
+
+    def twiddle_index(self, s: int, jm: np.ndarray, lo: np.ndarray) -> np.ndarray:
+        """Index into `_pass_twiddles` of the twiddle w_{2^(s+1)}^j of
+        global stage s (s_lo <= s < s_hi), j = jm * 2^s_lo + lo, where jm is
+        the butterfly's position in its half-block of 2^(s - s_lo) rows."""
+        m = 1 << (s - self.s_lo)
+        return ((m - 1 + np.asarray(jm)) << self.s_lo) + np.asarray(lo)
+
+
+def _pass_plan(log_n: int, c: int, t: int | None = None) -> tuple[NttPass, ...]:
+    """K1's passes for an [2^log_n, c] transform: at most t stages each, so
+    two passes cover n <= 2^(2t). By default as few passes as TILE_WORDS
+    tiles allow, with the stages spread evenly over them: the tiles are then
+    no larger than they must be, and a narrow matrix still gets enough
+    blocks to fill the card. Every tile holds at most 2^t rows x W columns;
+    a pass with fewer than t stages widens its tile with R residues, up to
+    2^s_lo."""
+    log_w = min(max(c - 1, 0).bit_length(), MAX_LOG_W)
+    if t is None:
+        t_max = TILE_WORDS.bit_length() - 1 - log_w
+        n_passes = max(1, -(-log_n // t_max))
+        t = max(1, -(-log_n // n_passes))
+    if t < 1:
+        raise ValueError(f"ntt: a pass needs at least one stage, got t={t}")
+    passes = []
+    s = 0
+    while True:
+        s_hi = min(s + t, log_n)
+        passes.append(NttPass(s, s_hi, min(s, t - (s_hi - s)), log_w))
+        s = s_hi
+        if s >= log_n:
+            return tuple(passes)
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_twiddles(log_n: int, inverse: bool, s_lo: int, s_hi: int) -> np.ndarray:
+    """The twiddles of stages [s_lo, s_hi), laid out as NttPass.twiddle_index
+    reads them: entry ((m - 1 + jm) << s_lo) + lo is w_{2^(s+1)}^j with
+    m = 2^(s - s_lo), j = jm * 2^s_lo + lo. That is the packed table's
+    slice [2^s_lo, 2^s_hi), so lo, which runs along a tile's R residues, is
+    the contiguous index."""
+    return np.ascontiguousarray(_twiddle_table(log_n, inverse)[1 << s_lo : 1 << s_hi])
+
+
 def ntt(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Forward/inverse NTT along axis 0 of `values` ([n] or [n, cols]).
 
@@ -107,7 +196,10 @@ def _ntt_plain(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return x[:, 0] if squeeze else x
 
 
-def _ntt_cuda(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def _ntt_cuda(values: torch.Tensor, inverse: bool = False, t: int | None = None) -> torch.Tensor:
+    """K1: one launch per pass of `_pass_plan(log_n, c, t)`. The first pass
+    reads `values` in place (any row stride, bit-reversed rows) into the
+    output; later passes work on the output in place."""
     global LAUNCHES
     from . import cuda_lib
 
@@ -118,16 +210,24 @@ def _ntt_cuda(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     cuda_lib.require_cuda_u64("ntt", x)
     n, c = x.shape
     log_n = _log2_exact(n)
-    tw = xnp.device_table(("twtab", log_n, inverse), x.device, lambda: _twiddle_table(log_n, inverse))
     out = torch.empty((n, c), dtype=torch.int64, device=x.device)
+    if c == 0:
+        return out[:, 0] if squeeze else out
     scale = pow(n, gl.P - 2, gl.P) if inverse else 1
+    lib = cuda_lib.lib()
     with torch.cuda.device(x.device):
-        err = cuda_lib.lib().starky_ntt(
-            x.data_ptr(), x.stride(0), out.data_ptr(), n, c, tw.data_ptr(),
-            scale, int(inverse), cuda_lib.stream_of(x),
-        )
-    cuda_lib.check(err, "ntt")
-    LAUNCHES += 1
+        stream = cuda_lib.stream_of(x)
+        for k, p in enumerate(_pass_plan(log_n, c, t)):
+            tw = xnp.device_table(("ntt_pass_tw", log_n, inverse, p.s_lo, p.s_hi), x.device,
+                                  lambda: _pass_twiddles(log_n, inverse, p.s_lo, p.s_hi))
+            src, src_stride = (x, x.stride(0)) if k == 0 else (out, c)
+            err = lib.starky_ntt_pass(
+                src.data_ptr(), src_stride, out.data_ptr(), n, c, log_n, p.s_lo, p.s_hi,
+                p.log_r, p.log_w, tw.data_ptr(), scale, int(k == 0), int(k == 0 and inverse),
+                stream,
+            )
+            cuda_lib.check(err, "ntt")
+            LAUNCHES += 1
     return out[:, 0] if squeeze else out
 
 

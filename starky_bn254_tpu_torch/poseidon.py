@@ -9,9 +9,11 @@ circ(FAST_MDS_ROW) + diag(MDS_DIAG). `set_params` swaps the whole set and
 
 `permute`, `sponge_absorb`, `hash_no_pad` and `compress` reduce to
 `_sponge`, the wrapper of kernel K3 (csrc/poseidon.cu): on a CUDA tensor it
-launches the kernel with the current constants as device tables; on a CPU
-tensor it runs `_sponge_plain`. `grind_batch` is the fused proof-of-work
-batch (kernel entry starky_poseidon_grind, plain twin `_grind_plain`).
+launches the kernel with the current constants as device tables, in the
+layout `_sponge_form` picks from the row count and the MDS form
+`_small_mds` picks from the parameters; on a CPU tensor it runs
+`_sponge_plain`. `grind_batch` is the fused proof-of-work batch (kernel
+entry starky_poseidon_grind, plain twin `_grind_plain`).
 
 All functions are batched: a state batch has shape [..., 12] int64.
 """
@@ -39,6 +41,13 @@ _SEED = b"starky_bn254_tpu/poseidon/goldilocks-w12/v1"
 _DEFAULT_SEED = _SEED
 
 LAUNCHES = 0  # K3 launches (sponge and grind entry points)
+
+# Sponges of at most this many rows run one state per 16 lanes (K3's
+# cooperative form: a permutation's latency is what such a batch waits
+# for); larger ones one state per thread. chip_smoke.py's layout sweep on
+# an H100 puts the crossover between 8192 rows (coop faster) and 12288
+# (row faster); PERF.md has the times.
+COOP_MAX_ROWS = 8192
 
 # Circulant MDS first row (all entries small powers of two); exhaustively
 # verified MDS by the JAX package's native/mds_check.cpp.
@@ -148,6 +157,18 @@ def _sbox(x):
     return gl.mul(x6, x)
 
 
+def _small_mds() -> bool:
+    """Every MDS entry <= 2^16: the small-constant form applies (here and
+    in kernel K3); otherwise both take the dense modmul matvec."""
+    return max(FAST_MDS_ROW) <= 1 << 16 and max(MDS_DIAG) <= 1 << 16
+
+
+def _sponge_form(n_rows: int) -> str:
+    """K3's state layout for a sponge over n_rows rows: "coop" (one state
+    per 16 lanes) up to COOP_MAX_ROWS, else "row" (one state per thread)."""
+    return "coop" if n_rows <= COOP_MAX_ROWS else "row"
+
+
 def _mds_layer(state: torch.Tensor) -> torch.Tensor:
     """M = circ(row) + diag(diag). With every entry <= 2^16 each term's
     32-bit halves times the entry stay < 2^48 and 13 terms sum < 2^53, so
@@ -155,7 +176,7 @@ def _mds_layer(state: torch.Tensor) -> torch.Tensor:
     package's shift/mul16 forms); larger entries take the dense modmul
     matvec. Both give the canonical residue of the same sum."""
     dev = state.device
-    if max(FAST_MDS_ROW) > 1 << 16 or max(MDS_DIAG) > 1 << 16:
+    if not _small_mds():
         prod = gl.mul(state[..., None, :], _table("mds", dev))
         return gl.sum_mod(prod, axis=-1)
     E = gl._TorchOps
@@ -198,7 +219,9 @@ def _sponge_plain(state, block, out_words: int):
     return st[:, :out_words]
 
 
-def _sponge_cuda(state, block, out_words: int):
+def _sponge_cuda(state, block, out_words: int, form: str | None = None):
+    """K3 over [n, width] rows; `form` ("coop" or "row") overrides
+    `_sponge_form(n)`."""
     global LAUNCHES
     from . import cuda_lib
 
@@ -209,13 +232,16 @@ def _sponge_cuda(state, block, out_words: int):
     n, width = block.shape
     if st is not None and tuple(st.shape) != (n, WIDTH):
         raise ValueError(f"poseidon: state shape {tuple(st.shape)} != {(n, WIDTH)}")
+    form = _sponge_form(n) if form is None else form
+    if form not in ("coop", "row"):
+        raise ValueError(f"poseidon: unknown sponge form {form!r}")
     out = torch.empty((n, out_words), dtype=torch.int64, device=block.device)
-    rc, mds = _table("rc", block.device), _table("mds", block.device)
+    rc, row, diag = (_table(k, block.device) for k in ("rc", "row", "diag"))
     with torch.cuda.device(block.device):
         err = cuda_lib.lib().starky_poseidon_sponge(
             None if st is None else st.data_ptr(), block.data_ptr(), n, width,
-            block.stride(0), rc.data_ptr(), mds.data_ptr(), out.data_ptr(),
-            out_words, cuda_lib.stream_of(block),
+            block.stride(0), rc.data_ptr(), row.data_ptr(), diag.data_ptr(), out.data_ptr(),
+            out_words, int(_small_mds()), int(form == "coop"), cuda_lib.stream_of(block),
         )
     cuda_lib.check(err, "poseidon")
     LAUNCHES += 1
@@ -300,11 +326,11 @@ def _grind_cuda(seed: int, start: int, batch: int, threshold: int, device) -> in
     from . import cuda_lib
 
     result = torch.full((1,), batch, dtype=torch.int64, device=device)
-    rc, mds = _table("rc", result.device), _table("mds", result.device)
+    rc, row, diag = (_table(k, result.device) for k in ("rc", "row", "diag"))
     with torch.cuda.device(result.device):
         err = cuda_lib.lib().starky_poseidon_grind(
-            seed, start, batch, threshold, rc.data_ptr(), mds.data_ptr(),
-            result.data_ptr(), cuda_lib.stream_of(result),
+            seed, start, batch, threshold, rc.data_ptr(), row.data_ptr(), diag.data_ptr(),
+            int(_small_mds()), result.data_ptr(), cuda_lib.stream_of(result),
         )
     cuda_lib.check(err, "poseidon_grind")
     LAUNCHES += 1

@@ -6,9 +6,10 @@
       +-- composition: AIR.eval over LDE row blocks
       +-- quotient chunks --> cap --> openings at zeta, g*zeta --> FRI
 
-`prove` runs on `trace.device`: every intermediate tensor stays there (the
-NTTs, Merkle hashing and grind through the CUDA kernels on a card), and
-only the Fiat-Shamir transcript runs on the host.
+`prove` runs on the CUDA card unless the caller names another device
+(`device="cpu"`): every intermediate tensor stays there (the NTTs, Merkle
+hashing and grind through the CUDA kernels on a card), and only the
+Fiat-Shamir transcript runs on the host.
 """
 
 from __future__ import annotations
@@ -131,12 +132,35 @@ def _selectors_np(xs, n, n_lde, w_big, g_last, s_n) -> dict:
     }
 
 
-def prove(air: Air, trace: torch.Tensor, public_inputs: np.ndarray, cfg: StarkConfig,
-          timing=None, mesh=None) -> StarkProof:
-    """Prove `air` on `trace` ([n, C] int64 tensor; see xnp.to_torch) under
-    `cfg`, on trace.device."""
+def _prove_device(device) -> torch.device:
+    """`device`, or the current CUDA device when it is None; never a silent
+    CPU run."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "prove: no CUDA card is available (torch.cuda.is_available() is False); "
+            "pass device='cpu' to prove on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
+          timing=None, mesh=None, device=None) -> StarkProof:
+    """Prove `air` on `trace` under `cfg`.
+
+    trace: [n, C] field elements, a numpy uint64 array or an int64 tensor
+    (xnp.to_torch), moved to `device`. device: where the prover runs; None
+    is the current CUDA device, and raises when there is no card."""
     from ..utils.timing import TimingTree
 
+    dev = _prove_device(device)
+    if isinstance(trace, torch.Tensor):
+        if trace.dtype != torch.int64:
+            raise TypeError(f"prove: expected an int64 trace tensor, got {trace.dtype}")
+        trace = trace.to(dev)
+    else:
+        trace = xnp.to_torch(trace, dev)
     if mesh is not None:
         raise NotImplementedError("sharded proving is not ported yet")
     if cfg.fri.parity:
@@ -144,7 +168,6 @@ def prove(air: Air, trace: torch.Tensor, public_inputs: np.ndarray, cfg: StarkCo
     if air.lookup_tables() or air.aux_extra_width():
         raise NotImplementedError("logUp and AIR-defined aux columns are not ported yet")
 
-    dev = trace.device
     tt = timing if timing is not None else TimingTree("prove", dev)
     n, num_cols = trace.shape
     assert num_cols == air.num_columns, (num_cols, air.num_columns)

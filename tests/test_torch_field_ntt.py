@@ -207,11 +207,140 @@ def test_ntt_rejects_non_power_of_two():
         ntt.ntt(torch.zeros((12, 2), dtype=torch.int64))
 
 
+# -- kernel K1's pass plan, replayed on the CPU --------------------------------
+
+
+def _ntt_by_passes(values: torch.Tensor, inverse: bool, t=None) -> torch.Tensor:
+    """K1 as csrc/ntt.cu runs it, in torch ops: for each pass of
+    ntt._pass_plan, every tile (NttPass.tile_rows x one column slab) is
+    loaded (the first pass from the bit-reversed rows of `values`, any row
+    stride, times 1/n for the inverse), runs the pass's stages with the
+    pass's twiddle table (_pass_twiddles, read at NttPass.twiddle_index),
+    and is stored back. Tiles are batched over the row groups."""
+    squeeze = values.ndim == 1
+    x = values[:, None] if squeeze else values
+    n, c = x.shape
+    log_n = ntt._log2_exact(n)
+    rev = torch.from_numpy(ntt._bit_reversal(log_n))
+    out = torch.empty((n, c), dtype=torch.int64)
+    for k, p in enumerate(ntt._pass_plan(log_n, c, t)):
+        tw = xnp.to_torch(ntt._pass_twiddles(log_n, inverse, p.s_lo, p.s_hi))
+        rows_np = p.tile_rows(np.arange(p.n_groups(log_n)))  # [groups, G, R]
+        rows = torch.from_numpy(rows_np)
+        lo = rows_np[:, :1, :] & ((1 << p.s_lo) - 1)  # [groups, 1, R]
+        groups, g_rows, r_res = rows.shape
+        width = 1 << p.log_w
+        for col0 in range(0, c, width):
+            cols = torch.arange(col0, min(col0 + width, c))
+            if k == 0:
+                tile = x[rev[rows][..., None], cols]
+                if inverse:
+                    tile = gl.mul(tile, pow(n, P - 2, P))
+            else:
+                tile = out[rows[..., None], cols]
+            w = len(cols)
+            for s in range(p.s_lo, p.s_hi):
+                m = 1 << (s - p.s_lo)
+                tv = tile.reshape(groups, g_rows // (2 * m), 2, m, r_res, w)
+                idx = p.twiddle_index(s, np.arange(m)[None, :, None], lo)  # [groups, m, R]
+                bw = gl.mul(tv[:, :, 1], tw[torch.from_numpy(idx)][:, None, :, :, None])
+                tile = torch.stack([gl.add(tv[:, :, 0], bw), gl.sub(tv[:, :, 0], bw)], dim=2)
+                tile = tile.reshape(groups, g_rows, r_res, w)
+            out[rows[..., None], cols] = tile
+    return out[:, 0] if squeeze else out
+
+
+# (n, c or None for 1-D, t or None for the default, row stride or None)
+PASS_CASES = {
+    "n2_c1": (2, 1, None, None),
+    "n64_c3_t2": (1 << 6, 3, 2, None),
+    "n1024_c130_t4": (1 << 10, 130, 4, None),
+    "n512_1d_t4": (1 << 9, None, 4, None),
+    "n32_c7_t6_one_pass": (1 << 5, 7, 6, None),
+    "n256_c5_t3_stride9": (1 << 8, 5, 3, 9),
+}
+
+
+def _pass_case_input(name: str) -> torch.Tensor:
+    n, c, _, stride = PASS_CASES[name]
+    rng = np.random.default_rng(13)
+    full = rng.integers(0, P, (n, stride or c or 1), dtype=np.uint64)
+    full.reshape(-1)[: min(full.size, len(_SPECIAL))] = _SPECIAL[: full.size]
+    x = xnp.to_torch(full)
+    if c is None:
+        return x[:, 0]
+    return x[:, 2 : 2 + c] if stride else x
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_ntt_pass_plan_matches_jax(case, inverse):
+    x = _pass_case_input(case)
+    t = PASS_CASES[case][2]
+    got = _ntt_by_passes(x, inverse, t)
+    want = np.asarray(jntt.ntt(jnp.asarray(xnp.to_numpy(x)), inverse=inverse))
+    assert (xnp.to_numpy(got) == want).all()
+    log_n = x.shape[0].bit_length() - 1
+    c = 1 if x.ndim == 1 else x.shape[1]
+    passes = ntt._pass_plan(log_n, c, t)
+    assert len(passes) == max(1, -(-log_n // (t or log_n or 1)))
+    if x.shape[0] <= 1 << (t or log_n):
+        assert len(passes) == 1
+
+
+@pytest.mark.parametrize("shape", [(1 << 16, 812), (1 << 17, 812), (1 << 16, 888), (1 << 17, 888),
+                                   (1 << 17, 2), (1 << 16, 4), (1 << 17, 1), (1 << 20, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ntt_pass_plan_two_passes_at_main_path_shapes(shape):
+    """Every main-path shape (and [2^20, 4]) takes two passes, with no
+    separate bit-reversal launch: the stages split without gap or overlap,
+    each tile fits TILE_WORDS, each twiddle index stays inside its table,
+    and the tiles of a pass cover every row once."""
+    n, c = shape
+    log_n = n.bit_length() - 1
+    passes = ntt._pass_plan(log_n, c)
+    assert len(passes) == 2
+    assert passes[0].s_lo == 0 and passes[-1].s_hi == log_n
+    for a, b in zip(passes, passes[1:]):
+        assert a.s_hi == b.s_lo
+    for p in passes:
+        assert p.log_r <= p.s_lo
+        assert 1 << (p.log_tile_rows + p.log_w) <= ntt.TILE_WORDS
+        size = (1 << p.s_hi) - (1 << p.s_lo)
+        m_last = 1 << (p.s_hi - 1 - p.s_lo)
+        assert p.twiddle_index(p.s_hi - 1, m_last - 1, (1 << p.s_lo) - 1) == size - 1
+    last = passes[-1]
+    rows = last.tile_rows(np.arange(last.n_groups(log_n)))
+    assert np.array_equal(np.sort(rows.reshape(-1)), np.arange(n))
+
+
+def test_pass_twiddles_are_the_stage_twiddles():
+    log_n = 7
+    for inverse in (False, True):
+        stages = ntt._stage_twiddles(log_n, inverse)
+        for p in ntt._pass_plan(log_n, 3, 3):
+            tab = ntt._pass_twiddles(log_n, inverse, p.s_lo, p.s_hi)
+            for s in range(p.s_lo, p.s_hi):
+                j = np.arange(1 << s)
+                idx = p.twiddle_index(s, j >> p.s_lo, j & ((1 << p.s_lo) - 1))
+                assert (tab[idx] == stages[s]).all()
+
+
 @pytest.mark.cuda
 def test_ntt_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(11)
-    for shape in [(1,), (2,), (1 << 10,), (1 << 12, 1), (1 << 12, 2), (1 << 13, 130)]:
-        x = xnp.to_torch(rng.integers(0, P, shape, dtype=np.uint64))
+    for shape in [(1,), (2,), (1 << 10,), (1 << 12, 1), (1 << 12, 2), (1 << 13, 130),
+                  (1 << 17, 888), (1 << 20, 4)]:
+        x = xnp.to_torch(rng.integers(0, P, shape, dtype=np.uint64)).to(cuda_device)
         for inverse in (False, True):
-            want = ntt._ntt_plain(x, inverse)
-            assert torch.equal(ntt.ntt(x.to(cuda_device), inverse).cpu(), want)
+            assert torch.equal(ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse))
+    wide = xnp.to_torch(rng.integers(0, P, (1 << 16, 900), dtype=np.uint64)).to(cuda_device)
+    view = wide[:, 5:817]  # a column slice: row stride 900, no copy
+    for inverse in (False, True):
+        assert torch.equal(ntt.ntt(view, inverse), ntt._ntt_plain(view.contiguous(), inverse))
+    for case in sorted(PASS_CASES):
+        x = _pass_case_input(case)
+        for inverse in (False, True):
+            got = ntt._ntt_cuda(x.to(cuda_device), inverse, PASS_CASES[case][2]).cpu()
+            assert torch.equal(got, _ntt_by_passes(x, inverse, PASS_CASES[case][2]))
+            assert torch.equal(got, ntt._ntt_plain(x, inverse))

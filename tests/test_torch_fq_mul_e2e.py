@@ -72,8 +72,9 @@ def trace42():
 
 @pytest.fixture(scope="module")
 def port_proof42(trace42):
-    return prove(FqMulAir(256), xnp.to_torch(trace42), np.zeros(0, dtype=np.uint64),
-                 StarkConfig.test_config())
+    # the numpy trace as the JAX prove takes it; the CPU named explicitly
+    return prove(FqMulAir(256), trace42, np.zeros(0, dtype=np.uint64),
+                 StarkConfig.test_config(), device="cpu")
 
 
 def test_trace_matches_jax(trace42):
@@ -84,11 +85,34 @@ def test_port_proof_is_fixture_bytes(port_proof42):
     assert proof_to_bytes(port_proof42) == proof_to_bytes(load_proof(FIXTURE))
 
 
+def test_prove_leaves_the_numpy_trace_unchanged(trace42, port_proof42):
+    """prove(..., device="cpu") took the numpy trace (port_proof42, the
+    fixture's bytes above) without writing into it."""
+    assert (trace42 == FqMulAir(256).generate_trace(fq_inputs(42, 250))).all()
+
+
+def test_prove_without_card_raises(trace42, monkeypatch):
+    """With no device named, prove runs on the card, and where there is
+    none it raises and names the missing card instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        prove(FqMulAir(256), trace42, np.zeros(0, dtype=np.uint64), StarkConfig.test_config())
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        prove(FqMulAir(256), xnp.to_torch(trace42), np.zeros(0, dtype=np.uint64),
+              StarkConfig.test_config())
+
+
+def test_prove_rejects_a_trace_of_another_dtype(trace42):
+    with pytest.raises(TypeError, match="int64"):
+        prove(FqMulAir(256), torch.zeros((256, 4), dtype=torch.int32),
+              np.zeros(0, dtype=np.uint64), StarkConfig.test_config(), device="cpu")
+
+
 def test_seed7_digest_pinned():
     air = FqMulAir(256)
     trace = air.generate_trace(fq_inputs(7, 64))
     proof = prove(air, xnp.to_torch(trace), np.zeros(0, dtype=np.uint64),
-                  StarkConfig.test_config())
+                  StarkConfig.test_config(), device="cpu")
     assert proof_digest(proof) == SEED7_DIGEST
 
 
@@ -129,7 +153,7 @@ def test_keccak_variant_matches_jax(trace42):
     cfg = keccak_test_config(FriConfig, StarkConfig)
     jcfg = keccak_test_config(JaxFriConfig, JaxStarkConfig)
     pi = np.zeros(0, dtype=np.uint64)
-    port = prove(FqMulAir(256), xnp.to_torch(trace42), pi, cfg)
+    port = prove(FqMulAir(256), xnp.to_torch(trace42), pi, cfg, device="cpu")
     ref = jax_prove(JaxFqMulAir(256), jnp.asarray(trace42), pi, jcfg)
     assert proof_to_bytes(port) == jax_proof_to_bytes(ref)
     assert proof_digest(port) == KECCAK_DIGEST

@@ -184,6 +184,50 @@ def test_params_from_jax_swap(mds_row, mds_diag):
     assert (poseidon._constants()[0] == jposeidon._constants()[0]).all()
 
 
+DENSE_PARAMS = dict(mds_row=(1 << 40, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37),
+                    mds_diag=(0,) * 11 + (1 << 33,))
+
+
+def _restore_default_params():
+    poseidon.set_params(seed=poseidon._DEFAULT_SEED, mds_row=poseidon.DEFAULT_MDS_ROW,
+                        mds_diag=(0,) * 12)
+
+
+@pytest.mark.parametrize(
+    "mds_row,mds_diag,small",
+    [(poseidon.DEFAULT_MDS_ROW, (0,) * 12, True),
+     ((1 << 16,) * 12, (1 << 16,) * 12, True),
+     (((1 << 16) + 1,) + (1,) * 11, (0,) * 12, False),
+     (poseidon.DEFAULT_MDS_ROW, (0,) * 11 + ((1 << 16) + 1,), False),
+     (DENSE_PARAMS["mds_row"], DENSE_PARAMS["mds_diag"], False)],
+    ids=["default", "all_2^16", "row_above_2^16", "diag_above_2^16", "dense"],
+)
+def test_poseidon_kernel_mds_form_follows_mds_layer(mds_row, mds_diag, small, monkeypatch):
+    """K3 takes the small-constant MDS exactly when _mds_layer does: the
+    wrapper's flag is _small_mds(), and _mds_layer takes its dense matvec
+    (the only path reading the "mds" table) exactly when it is False."""
+    try:
+        poseidon.set_params(mds_row=mds_row, mds_diag=mds_diag)
+        assert poseidon._small_mds() is small
+        read = []
+        table = poseidon._table
+        monkeypatch.setattr(poseidon, "_table", lambda name, dev: read.append(name) or table(name, dev))
+        poseidon._mds_layer(_t(_words(23, (4, 12), field=True)))
+        assert ("mds" in read) is (not small)
+    finally:
+        monkeypatch.undo()
+        _restore_default_params()
+
+
+@pytest.mark.parametrize("rows", [1, 27, poseidon.COOP_MAX_ROWS, poseidon.COOP_MAX_ROWS + 1, 131072])
+def test_poseidon_sponge_form_by_rows(rows):
+    """The challenger's digests (1 to 27 rows) and the compress levels run
+    one state per 16 lanes; batches above COOP_MAX_ROWS one per thread."""
+    want = "coop" if rows <= poseidon.COOP_MAX_ROWS else "row"
+    assert poseidon._sponge_form(rows) == want
+    assert 27 <= poseidon.COOP_MAX_ROWS
+
+
 # -- Merkle ------------------------------------------------------------------
 
 
@@ -220,11 +264,27 @@ def test_keccak_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_poseidon_kernel_matches_plain(cuda_device):
-    for width in (5, 8, 40, 812):
-        x = _t(_words(22, (300, width), field=True))
-        assert torch.equal(poseidon.hash_no_pad(x.to(cuda_device)).cpu(), poseidon.hash_no_pad(x))
-    for bits in (6, 10):
-        seed = 0xABCDEF123
-        batch, thr, start = 1 << max(bits + 2, 10), 1 << (64 - bits), (seed >> 24) & 0xFFFFFFFF
-        assert (poseidon.grind_batch(seed, start, batch, thr, cuda_device)
-                == poseidon.grind_batch(seed, start, batch, thr, "cpu"))
+    """Both K3 layouts against _sponge_plain, on the card: rows 1, 27, 4096
+    and 131072; widths 8, 64, 128 and 812; out_words 4 and 12; with and
+    without an input state; the default and a dense-MDS parameter set; and
+    the grind at 16 bits from two seeds against _grind_plain."""
+    try:
+        for params in ("default", "dense"):
+            if params == "dense":
+                poseidon.set_params(**DENSE_PARAMS)
+            for rows, widths in ((1, (8, 64, 128, 812)), (27, (8, 64, 128, 812)),
+                                 (4096, (8, 128)), (131072, (64,))):
+                for width in widths:
+                    blk = _t(_words(22, (rows, width), field=True)).to(cuda_device)
+                    st = _t(_words(24, (rows, 12), field=True)).to(cuda_device)
+                    for state, out_words in ((None, 4), (st, 12), (st, 4)):
+                        want = poseidon._sponge_plain(state, blk, out_words)
+                        for form in ("coop", "row"):
+                            got = poseidon._sponge_cuda(state, blk, out_words, form)
+                            assert torch.equal(got, want), (params, rows, width, out_words, form)
+            for seed in (0x1234_5678_9ABC, 0x0F0F_F0F0_1234_5678):
+                batch, thr, start = 1 << 18, 1 << 48, (seed >> 24) & 0xFFFFFFFF
+                assert (poseidon.grind_batch(seed, start, batch, thr, cuda_device)
+                        == poseidon._grind_plain(seed, start, batch, thr, cuda_device))
+    finally:
+        _restore_default_params()
