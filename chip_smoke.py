@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of starky_bn254_tpu_torch, the PyTorch + CUDA port.
 
-    python3 chip_smoke.py [--proves N]
+    python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (the kernels build from
 starky_bn254_tpu_torch/csrc/ at first use). Phases, each printing its own
@@ -10,18 +10,20 @@ lines; any failure raises and the exit code is non-zero:
 1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
 2. build: the three kernels, one nvcc per source side by side, timed;
    ptxas's registers and spills for every kernel entry (a K3 entry that
-   spills fails the run); the integer instructions of one NTT butterfly,
-   one Keccak round and one Poseidon round, counted in the SASS of
-   csrc/sass_probes.cu (cuobjdump);
+   spills fails the run); the integer instructions of each unit of work
+   the bounds count (a Goldilocks multiply, an add and a subtract of
+   canonical words, a Poseidon MDS layer, a Keccak round) and of a whole
+   K1 butterfly and K3 round as the kernels run them, counted in the SASS
+   of csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
    on the card, at the main path's shapes; exact equality (all arithmetic
    is exact mod p); kernel and plain times; each kernel's bound, the larger
-   of its compulsory bytes over the HBM rate and its integer instructions
-   over the int32 rate (SMs x 64 lanes x the maximum SM clock), and which of
-   the two it is. K3 also runs at the challenger's shapes, in both state
-   layouts and under a dense-MDS parameter set, and a row sweep times the
-   two layouts against each other (the crossover behind
-   poseidon.COOP_MAX_ROWS);
+   of its compulsory bytes over the HBM rate and the integer instructions
+   of the work its function needs over the int32 rate (SMs x 64 lanes x
+   the maximum SM clock), and which of the two it is. K3 also runs at the
+   challenger's shapes, in both state layouts and under a dense-MDS
+   parameter set, and a row sweep times the two layouts against each other
+   (the crossover behind poseidon.COOP_MAX_ROWS);
 4. fidelity: FqMulAir(256) under test_config (the JAX package's fixture
    statement) must reproduce tests/fixtures/fq_mul_256_test_config.npz byte
    for byte; the seed-7 digest and the keccak test-config digest pinned by
@@ -29,8 +31,8 @@ lines; any failure raises and the exit code is non-zero:
 5. slice: FqMulAir(65536) (812 trace + 888 permutation columns) under
    standard_fast_config("keccak"): trace generation, a first prove through
    `prove`'s default device (the card) with every kernel's launch count
-   reset just before and read just after (all must be > 0), N warm proves
-   (median time and phase table), verify, a tampered opening rejected, then
+   reset just before and read just after (all must be > 0), WARM_PROVES
+   warm proves (median time and phase table), verify, a tampered opening rejected, then
    torch.profiler over one more warm prove: device busy share and kernel
    time by name;
 6. the kernel JSON line, the card's line, then the result line.
@@ -38,7 +40,6 @@ lines; any failure raises and the exit code is non-zero:
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -52,6 +53,7 @@ FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_mul_256_test_config.npz")
 SEED7_DIGEST = "10cb158ab61caf68"
 KECCAK_DIGEST = "d9399851e8b42e5a"
 SLICE_ROWS = 1 << 16
+WARM_PROVES = 5  # the slice's prove_s is their median
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
 
@@ -118,24 +120,38 @@ def check_equal(name, got, want) -> float:
 
 class Bounds:
     """A kernel's least time on this card: its compulsory bytes (each input
-    read once, each output written once) over the HBM rate, or its integer
-    instructions over the int32 rate, whichever is larger."""
+    read once, each output written once) over the HBM rate, or the integer
+    instructions of the work its function needs over the int32 rate,
+    whichever is larger. The work is counted in field operations (one
+    multiply, one add or subtract of canonical words, one Poseidon MDS
+    layer, one Keccak round), each as many instructions as its probe in
+    csrc/sass_probes.cu; a kernel's own index arithmetic, loads and
+    redundant operations are not work."""
 
     def __init__(self, sms: int, sm_clock_mhz: float, ops: dict[str, int]):
         self.int_ops_per_s = sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
         self.ops = ops
-        self.perm = 8 * ops["probe_poseidon_full_round"] + 22 * ops["probe_poseidon_partial_round"]
+        mul, add = ops["probe_gl_mul"], ops["probe_add_canonical"]
+        # 30 rounds of 12 round-constant adds and one MDS layer; an S-box
+        # (x^7: 4 multiplies) on 12 lanes in the 8 full rounds, on 1 in the 22 partial
+        self.perm = 30 * (12 * add + ops["probe_poseidon_mds"]) + (8 * 12 + 22) * 4 * mul
 
     def __call__(self, nbytes: float, ops: float) -> dict:
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = ops / self.int_ops_per_s * 1e3
-        kind = "bytes" if by_bytes >= by_ops else "operations"
-        return dict(bound_ms=max(by_bytes, by_ops), bound_by=kind, bound_kind=kind,
+        return dict(bound_ms=max(by_bytes, by_ops),
+                    bound_by="bytes" if by_bytes >= by_ops else "operations",
                     bytes=nbytes, int_ops=ops)
 
     def ntt(self, n: int, c: int, inverse: bool) -> dict:
+        """n/2 * log2(n) butterflies a column, each an add and a subtract,
+        and a multiply unless its twiddle is 1: the j = 0 butterfly of each
+        block of each stage, n - 1 of them. The inverse's 1/n is a multiply
+        a word."""
         log_n = n.bit_length() - 1
-        ops = n // 2 * log_n * c * self.ops["probe_ntt_butterfly"]
+        butterflies = n // 2 * log_n
+        ops = c * (butterflies * (self.ops["probe_add_canonical"] + self.ops["probe_sub_canonical"])
+                   + (butterflies - (n - 1)) * self.ops["probe_gl_mul"])
         if inverse:
             ops += n * c * self.ops["probe_gl_mul"]
         return self(16 * n * c + 8 * n, ops)  # + the twiddle table
@@ -434,7 +450,7 @@ def profile_prove(run) -> None:
         print(f"slice: {kernel} kernels: {ms:.3f} ms in {count} launches")
 
 
-def phase_slice(dev, proves: int) -> dict:
+def phase_slice(dev) -> dict:
     import numpy as np
     import torch
 
@@ -468,7 +484,7 @@ def phase_slice(dev, proves: int) -> dict:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
     times, phases = [], []
-    for _ in range(proves):
+    for _ in range(WARM_PROVES):
         tt = TimingTree("prove", dev)
         t0 = time.perf_counter()
         proof = prove(air, trace, pi, cfg, timing=tt)
@@ -493,14 +509,14 @@ def phase_slice(dev, proves: int) -> dict:
     else:
         raise AssertionError("a tampered opening was accepted")
 
-    print(f"slice: warm prove phases, median of {proves} (ms)")
+    print(f"slice: warm prove phases, median of {WARM_PROVES} (ms)")
     for key in phases[0]:
         vals = [p[key] for p in phases if key in p]
         print(f"slice:   {statistics.median(vals):9.1f}  {key}")
     size = len(proof_to_bytes(proof))
     q = statistics.quantiles(times, n=4) if len(times) > 1 else times * 3
     print(f"slice: prove_s median {statistics.median(times):.3f} (quartiles {q[0]:.3f} / {q[1]:.3f} / "
-          f"{q[2]:.3f}; {proves} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
+          f"{q[2]:.3f}; {WARM_PROVES} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
           f"tracegen_s {tracegen_s:.3f} proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
     print(f"slice: launches in the first prove {json.dumps(launches)}")
     profile_prove(lambda: prove(air, trace, pi, cfg))
@@ -508,9 +524,6 @@ def phase_slice(dev, proves: int) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--proves", type=int, default=5, help="warm proves of the slice (median)")
-    args = ap.parse_args()
     smi, sms, clock = phase_device()
     import torch
 
@@ -519,14 +532,14 @@ def main() -> int:
     bounds = phase_build(sms, clock)
     kernel_stats = phase_kernels(dev, bounds)
     phase_fidelity(dev)
-    launches = phase_slice(dev, args.proves)
+    launches = phase_slice(dev)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = kernel_stats[name]
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                   bound_kind=r["bound_kind"], library_ms=None, shape=r["shape"])
+                   library_ms=None, shape=r["shape"])
         row.update({k: v for k, v in r.items() if k not in row and k not in ("bytes", "int_ops")})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))

@@ -19,20 +19,23 @@
 // bit-reversed source rows (any row stride, so a column slice needs no
 // copy) and applies the inverse's 1/n scale as it loads (the transform is
 // linear and exact mod p, so scaling first gives the same residues). The
-// pass plan, the tile's row indices and the per-pass twiddle tables are
-// built in ntt.py (_pass_plan, NttPass, _pass_twiddles), where the CPU
-// tests replay them; this file only walks them. With 64 KB tiles two passes
-// cover n <= 2^18 at 16 columns a slab, and n <= 2^26 at one column.
+// pass plan and the per-pass twiddle tables are built in ntt.py
+// (_pass_plan, _pass_twiddles) and passed in. The kernel's tile-row and
+// twiddle-index formulas mirror NttPass.tile_rows and
+// NttPass.twiddle_index, which the CPU tests replay with torch ops; each
+// formula below names its twin, and a change to one is a change to both.
+// With 64 KB tiles two passes cover n <= 2^18 at 16 columns a slab, and
+// n <= 2^26 at one column.
 //
 // Bound: integer throughput. A [131072, 888] forward transform is
-// 65536 * 17 * 888 butterflies (a Goldilocks multiply, add and subtract:
-// 60 SASS integer instructions, counted by chip_smoke.py in
-// csrc/sass_probes.cu) against 2 * 0.93 GB of compulsory HBM traffic; the
-// two passes move 3.7 GB. Threads run along the column slab
-// (16 words: 128-byte row segments, coalesced; a half-warp covers one
-// 128-byte shared-memory row, so 8-byte words meet no bank conflicts when
-// W >= 16). Tiles are at most 64 KB, so three blocks share an SM and one
-// block's loads overlap another's butterflies.
+// 65536 * 17 * 888 butterflies (an add and a subtract, and a multiply
+// where the twiddle is not 1; chip_smoke.py's Bounds.ntt counts them in
+// the instructions of csrc/sass_probes.cu) against 2 * 0.93 GB of
+// compulsory HBM traffic; the two passes move 3.7 GB. Threads run along
+// the column slab (16 words: 128-byte row segments, coalesced; a half-warp
+// covers one 128-byte shared-memory row, so 8-byte words meet no bank
+// conflicts when W >= 16). Tiles are at most 64 KB, so three blocks share
+// an SM and one block's loads overlap another's butterflies.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +67,7 @@ ntt_pass_kernel(const uint64_t* __restrict__ in, int64_t in_stride, uint64_t* ou
   const int w_mask = (1 << log_w) - 1;
   const int64_t slab = blockIdx.x % n_slabs;
   const int64_t g = blockIdx.x / n_slabs;
+  // NttPass.tile_rows: hi = g >> lo_bits, lo_base = (g mod 2^lo_bits) * R
   const int lo_bits = s_lo - log_r;
   const int64_t lo_base = (g & (((int64_t)1 << lo_bits) - 1)) << log_r;
   const int64_t row_base = ((g >> lo_bits) << s_hi) + lo_base;
@@ -71,6 +75,7 @@ ntt_pass_kernel(const uint64_t* __restrict__ in, int64_t in_stride, uint64_t* ou
 
   for (int e = threadIdx.x; e < words; e += NTT_THREADS) {
     const int q = e & q_mask;
+    // NttPass.tile_rows: row = hi * 2^s_hi + mid * 2^s_lo + lo_base + r
     const int64_t row = row_base + ((int64_t)(e >> log_q) << s_lo) + (q >> log_w);
     const int64_t col = col0 + (q & w_mask);
     uint64_t v = 0;
@@ -89,6 +94,7 @@ ntt_pass_kernel(const uint64_t* __restrict__ in, int64_t in_stride, uint64_t* ou
 
   for (int sp = 0; sp < stages; sp++) {
     const int m = 1 << sp;  // half-block, in tile rows
+    // NttPass.twiddle_index: ((m - 1 + jm) << s_lo) + lo, lo = lo_base + r
     const uint64_t* tws = tw + ((int64_t)(m - 1) << s_lo) + lo_base;
 #pragma unroll 4
     for (int e = threadIdx.x; e < (words >> 1); e += NTT_THREADS) {
@@ -121,17 +127,15 @@ extern "C" int starky_ntt_pass(const uint64_t* in, int64_t in_stride, uint64_t* 
                                int64_t c, int log_n, int s_lo, int s_hi, int log_r, int log_w,
                                const uint64_t* tw, uint64_t scale, int gather, int do_scale,
                                cudaStream_t stream) {
-  static size_t smem_allowed = 48 * 1024;
   const int log_tile = s_hi - s_lo + log_r + log_w;
   const size_t smem = (size_t)8 << log_tile;
   const int64_t n_slabs = (c + ((int64_t)1 << log_w) - 1) >> log_w;
   const int64_t blocks = (n >> (s_hi - s_lo + log_r)) * n_slabs;
   if (blocks < 1 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
-  if (smem > smem_allowed) {
+  if (smem > 48 * 1024) {  // the attribute is per device: set it on the current one every time
     cudaError_t err = cudaFuncSetAttribute(
         ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
   }
   ntt_pass_kernel<<<(unsigned)blocks, NTT_THREADS, smem, stream>>>(
       in, in_stride, out, c, log_n, s_lo, s_hi, log_r, log_w, n_slabs, tw, scale, gather,

@@ -40,9 +40,11 @@
 // jnp.argmax picks in the JAX grind: the nonce is the same.
 //
 // Bound: integer throughput (a permutation reads and writes at most 96
-// bytes a row, the grind none). In the small-constant form a full round is
-// 2496 SASS integer instructions and a partial round 1223 (chip_smoke.py
-// counts them in csrc/sass_probes.cu), so a permutation is ~47k; a dense
+// bytes a row, the grind none). A permutation's work is 360 round-constant
+// adds, 472 multiplies (118 S-boxes) and 30 MDS layers; chip_smoke.py's
+// Bounds counts their instructions in csrc/sass_probes.cu. As this kernel
+// runs them in the small-constant form, a full round is 2496 SASS integer
+// instructions and a partial round 1223, ~47k a permutation; a dense
 // matvec's 144 products alone are 144 * 32 = 4608 a round.
 
 #include <cuda_runtime.h>

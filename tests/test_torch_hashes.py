@@ -263,11 +263,27 @@ def test_keccak_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_poseidon_kernel_matches_plain(cuda_device):
-    """Both K3 layouts against _sponge_plain, on the card: rows 1, 27, 4096
-    and 131072; widths 8, 64, 128 and 812; out_words 4 and 12; with and
-    without an input state; the default and a dense-MDS parameter set; and
-    the grind at 16 bits from two seeds against _grind_plain."""
+def test_poseidon_kernel_matches_plain(cuda_device, monkeypatch):
+    """Both K3 layouts against the plain version, on the card: the public
+    hash_no_pad at 300 rows of widths 5 (one partial chunk), 8, 40 and 812
+    against the CPU path; the grind at 6 and 10 bits (the 1024-row batch
+    floor, many hits) against the CPU; rows 1, 27, 4096 and 131072, widths
+    8, 64, 128 and 812, out_words 4 and 12, with and without an input
+    state, under the default and a dense-MDS parameter set against
+    _sponge_plain; and the grind at 16 bits from two seeds against
+    _grind_plain."""
+    for coop_max in (poseidon.COOP_MAX_ROWS, 0):  # 300 rows: coop layout, then row
+        monkeypatch.setattr(poseidon, "COOP_MAX_ROWS", coop_max)
+        for width in (5, 8, 40, 812):
+            x = _t(_words(22, (300, width), field=True))
+            got = poseidon.hash_no_pad(x.to(cuda_device)).cpu()
+            assert torch.equal(got, poseidon.hash_no_pad(x)), (coop_max, width)
+    monkeypatch.undo()
+    for bits in (6, 10):
+        seed = 0xABCDEF123
+        batch, thr, start = 1 << max(bits + 2, 10), 1 << (64 - bits), (seed >> 24) & 0xFFFFFFFF
+        assert (poseidon.grind_batch(seed, start, batch, thr, cuda_device)
+                == poseidon.grind_batch(seed, start, batch, thr, "cpu"))
     try:
         for params in ("default", "dense"):
             if params == "dense":
