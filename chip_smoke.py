@@ -8,34 +8,47 @@ starky_bn254_tpu_torch/csrc/ at first use). Phases, each printing its own
 lines; any failure raises and the exit code is non-zero:
 
 1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
-2. build: the three kernels, one nvcc per source side by side, timed;
-   ptxas's registers and spills for every kernel entry (a K3 entry that
-   spills fails the run); the integer instructions of each unit of work
-   the bounds count (a Goldilocks multiply, an add and a subtract of
+2. build: the three kernels, one nvcc per source side by side, and the
+   native witness generator (g++ on native/witness.cpp) beside them, each
+   timed; ptxas's registers and spills for every kernel entry (a K3 entry
+   that spills fails the run); the integer instructions of each unit of
+   work the bounds count (a Goldilocks multiply, an add and a subtract of
    canonical words, a Poseidon MDS layer, a Keccak round) and of a whole
    K1 butterfly and K3 round as the kernels run them, counted in the SASS
    of csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
-   on the card, at the main path's shapes; exact equality (all arithmetic
-   is exact mod p); kernel and plain times; each kernel's bound, the larger
-   of its compulsory bytes over the HBM rate and the integer instructions
-   of the work its function needs over the int32 rate (SMs x 64 lanes x
-   the maximum SM clock), and which of the two it is. K3 also runs at the
-   challenger's shapes, in both state layouts and under a dense-MDS
-   parameter set, and a row sweep times the two layouts against each other
-   (the crossover behind poseidon.COOP_MAX_ROWS);
-4. fidelity: FqMulAir(256) under test_config (the JAX package's fixture
-   statement) must reproduce tests/fixtures/fq_mul_256_test_config.npz byte
-   for byte; the seed-7 digest and the keccak test-config digest pinned by
+   on the card, at both paths' shapes (FqMulAir's and G1ExpAir(128)'s);
+   exact equality (all arithmetic is exact mod p); kernel and plain times;
+   each kernel's bound, the larger of its compulsory bytes over the HBM
+   rate and the integer instructions of the work its function needs over
+   the int32 rate (SMs x 64 lanes x the maximum SM clock), and which of the
+   two it is. K3 also runs at the challenger's shapes, in both state
+   layouts and under a dense-MDS parameter set, and a row sweep times the
+   two layouts against each other (the crossover behind
+   poseidon.COOP_MAX_ROWS);
+4. fidelity: FqMulAir(256) under test_config must reproduce
+   tests/fixtures/fq_mul_256_test_config.npz byte for byte, and
+   G1ExpAir(2, logup, rlc) under test_config
+   tests/fixtures/g1_exp_2_rlc_test_config.npz (both made by the JAX
+   package); the seed-7 digest and the keccak test-config digest pinned by
    the CPU tests must match;
 5. slice: FqMulAir(65536) (812 trace + 888 permutation columns) under
    standard_fast_config("keccak"): trace generation, a first prove through
    `prove`'s default device (the card) with every kernel's launch count
    reset just before and read just after (all must be > 0), WARM_PROVES
-   warm proves (median time and phase table), verify, a tampered opening rejected, then
-   torch.profiler over one more warm prove: device busy share and kernel
-   time by name;
-6. the kernel JSON line, the card's line, then the result line.
+   warm proves (median time and phase table), verify, a tampered opening
+   rejected, then torch.profiler over one more warm prove: device busy
+   share and kernel time by name;
+6. g1, the bench's main path: G1ExpAir(128) (65536 x 404 trace, logup_u16
+   range check, RLC IO binding: 390 aux columns) under
+   standard_fast_config("keccak"), inputs as bench.py makes them: tracegen
+   cold and warm, a first prove with the launch counts reset and read as
+   in 5, G1_WARM_PROVES warm proves (median and phase table, with the
+   logup and rlc aux sub-phases), verify, a tampered opening and an
+   instance-swapped proof rejected, the profile of one more warm prove, the
+   logUp column build by both routes (equal, each timed), and one prove
+   under standard_fast_config("poseidon"), verified;
+7. the kernel JSON line, the card's line, then the result line.
 """
 
 from __future__ import annotations
@@ -50,10 +63,16 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_mul_256_test_config.npz")
+G1_FIXTURE = os.path.join(HERE, "tests", "fixtures", "g1_exp_2_rlc_test_config.npz")
+G1_FIXTURE_SEED = 2026  # tests/test_torch_g1_e2e.py: the fixture's pinned inputs
 SEED7_DIGEST = "10cb158ab61caf68"
 KECCAK_DIGEST = "d9399851e8b42e5a"
 SLICE_ROWS = 1 << 16
 WARM_PROVES = 5  # the slice's prove_s is their median
+G1_NUM_IO = 128  # bench.py's default: 65536 rows
+G1_SHAPES = ((1 << 16, 404), 390)  # its trace and its aux columns, uncut
+G1_WARM_PROVES = 3  # the g1 phase's prove_s is their median
+G1_NTT_SHAPES = [(65536, 404), (131072, 404), (65536, 390), (131072, 390)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
 
@@ -80,6 +99,28 @@ def fq_inputs(seed: int, count: int, p_bn: int):
          int.from_bytes(rng.bytes(40), "little") % p_bn)
         for _ in range(count)
     ]
+
+
+def g1_inputs(seed: int, count: int, bn254):
+    """(x, offset, scalar) per instance, generated as bench.py:61-88 does
+    (and tests/test_torch_g1_e2e.py, whose fixture pins seed 2026)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
+
+    return [(bn254.g1_mul(bn254.G1_GEN, rand_scalar()), bn254.g1_mul(bn254.G1_GEN, rand_scalar()),
+             rand_scalar()) for _ in range(count)]
+
+
+def swap_instances(pi, num_io: int):
+    """The public inputs with the first two instances' blocks exchanged."""
+    import numpy as np
+
+    blk = pi.shape[0] // num_io
+    return np.concatenate([pi[blk : 2 * blk], pi[:blk], pi[2 * blk :]])
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -190,13 +231,26 @@ def phase_device():
     return smi, sms, float(clock)
 
 
-def phase_build(sms: int, clock_mhz: float) -> Bounds:
-    from starky_bn254_tpu_torch import cuda_lib
-
+def _timed(fn):
     t0 = time.perf_counter()
-    path = cuda_lib.build()
-    cuda_lib.lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)}")
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_build(sms: int, clock_mhz: float) -> tuple[Bounds, float]:
+    """Returns the bounds and the native library's build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from starky_bn254_tpu_torch import cuda_lib, native
+
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        native_job = pool.submit(_timed, native.build)
+        path, cuda_s = _timed(lambda: (cuda_lib.build(), cuda_lib.lib())[0])
+        native_path, native_s = native_job.result()
+    native.lib()
+    print(f"build: {cuda_s:.2f} s -> {os.path.relpath(path, HERE)}")
+    print(f"build: native witness generator (g++, beside nvcc) {native_s:.2f} s -> "
+          f"{os.path.relpath(native_path, HERE)}")
     spilled = []
     for name, r in sorted(cuda_lib.ptxas_report().items()):
         print(f"build: ptxas {name}: {r.get('registers')} registers, {r.get('stack')} B stack, "
@@ -209,7 +263,7 @@ def phase_build(sms: int, clock_mhz: float) -> Bounds:
     ops = cuda_lib.sass_op_counts()
     print(f"build: SASS integer instructions per unit ({time.perf_counter() - t0:.2f} s): "
           f"{json.dumps(ops, sort_keys=True)}")
-    return Bounds(sms, clock_mhz, ops)
+    return Bounds(sms, clock_mhz, ops), native_s
 
 
 def phase_kernels(dev, bounds: Bounds) -> dict:
@@ -226,20 +280,26 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
 
     out = {}
 
-    # K1: every main-path transform shape, both directions, and a column slice
+    # K1: every transform shape of both paths, both directions, and a column slice
     errs = []
+    g1_shapes = []  # the G1 path's shapes, for the kernel line
     for shape in [(65536, 812), (131072, 812), (65536, 888), (131072, 888), (131072, 2),
-                  (131072,), (65536, 4)]:
+                  (131072,), (65536, 4)] + G1_NTT_SHAPES:
         x = field(*shape)
         n, c = shape[0], (shape[1] if len(shape) > 1 else 1)
         for inverse in (False, True):
-            errs.append(check_equal(f"ntt{shape} inverse={inverse}",
-                                    ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse)))
+            err = check_equal(f"ntt{shape} inverse={inverse}",
+                              ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse))
+            errs.append(err)
             before = ntt.LAUNCHES
             ms = cuda_ms(lambda: ntt.ntt(x, inverse))
             passes = (ntt.LAUNCHES - before) // 4
-            show(f"ntt {list(shape)} {'inverse' if inverse else 'forward'} ({passes} passes), equal",
-                 dict(ms=ms, **bounds.ntt(n, c, inverse)))
+            r = dict(ms=ms, **bounds.ntt(n, c, inverse))
+            show(f"ntt {list(shape)} {'inverse' if inverse else 'forward'} ({passes} passes), equal", r)
+            if shape in G1_NTT_SHAPES:
+                g1_shapes.append(dict(shape=list(shape), inverse=inverse, max_abs_err=err, ms=ms,
+                                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x, inverse), 1),
+                                      bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
     wide = field(65536, 900)
     view = wide[:, 5:817]  # a column slice: the wrapper reads it in place (row stride 900)
     for inverse in (False, True):
@@ -249,7 +309,8 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
     del wide, view
     x = field(131072, 888)
     out["ntt"] = dict(max_abs_err=max(errs), shape=[131072, 888], ms=cuda_ms(lambda: ntt.ntt(x)),
-                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1), **bounds.ntt(131072, 888, False))
+                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1), **bounds.ntt(131072, 888, False),
+                      g1_shapes=g1_shapes)
     show("ntt [131072, 888] forward", out["ntt"])
     del x
 
@@ -269,6 +330,17 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
                 keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
     show("keccak hash_no_pad [131072, 888] (the Z-column leaves), equal",
          dict(ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), **bounds.keccak(131072, 888)))
+    g1_shapes = []
+    for width in (404, 390):  # the G1 trace and aux leaves
+        leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, width), dtype=np.uint64), dev)
+        err = check_equal(f"keccak hash_no_pad [131072, {width}]", keccak.hash_no_pad(leaves),
+                          keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+        r = dict(shape=[131072, width], max_abs_err=err, ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
+                 plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST), 1),
+                 **bounds.keccak(131072, width))
+        show(f"keccak hash_no_pad [131072, {width}] (G1 leaves), equal", r)
+        g1_shapes.append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
+    out["keccak_sponge"]["g1_shapes"] = g1_shapes
     del leaves
 
     out["poseidon_sponge_and_grind"] = phase_poseidon(dev, bounds, field)
@@ -312,6 +384,19 @@ def phase_poseidon(dev, bounds: Bounds, field) -> dict:
     show(f"poseidon sponge_absorb [131072, 64] ({poseidon._sponge_form(131072)} layout), equal",
          timed["sponge_131072x64"])
     del state, block
+    # the G1 trace leaves under the Poseidon Merkle hash (row layout)
+    leaves = field(131072, 404)
+    err = check_equal("poseidon hash_no_pad [131072, 404]", poseidon.hash_no_pad(leaves),
+                      poseidon._sponge_plain(None, leaves, 4))
+    errs.append(err)
+    g1_leaves = dict(shape=[131072, 404], max_abs_err=err,
+                     ms=cuda_ms(lambda: poseidon.hash_no_pad(leaves)),
+                     plain_ms=cuda_ms(lambda: poseidon._sponge_plain(None, leaves, 4), 1),
+                     form=poseidon._sponge_form(131072),
+                     **bounds.poseidon(131072, -(-404 // poseidon.RATE), 404, 4))
+    show(f"poseidon hash_no_pad [131072, 404] ({g1_leaves['form']} layout, G1 leaves), equal",
+         g1_leaves)
+    del leaves
     bits = 16
     batch, threshold = 1 << (bits + 2), 1 << (64 - bits)
     for seed in (0x1234_5678_9ABC, 0x0F0F_F0F0_1234_5678):
@@ -362,7 +447,8 @@ def phase_poseidon(dev, bounds: Bounds, field) -> dict:
           f"COOP_MAX_ROWS = {poseidon.COOP_MAX_ROWS}")
     return dict(max_abs_err=max(errs), shape=[batch, 12], **grind,
                 **{f"{k}_{f}": v[f] for k, v in timed.items() for f in ("ms", "bound_ms")},
-                sweep={str(r): v for r, v in sweep.items()})
+                sweep={str(r): v for r, v in sweep.items()},
+                g1_shapes=[{k: v for k, v in g1_leaves.items() if k not in ("bytes", "int_ops")}])
 
 
 def phase_fidelity(dev):
@@ -396,6 +482,19 @@ def phase_fidelity(dev):
         raise AssertionError(f"keccak test-config digest {dk} != {KECCAK_DIGEST}")
     print(f"fidelity: keccak test-config digest {dk}")
 
+    from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
+
+    g1 = G1ExpAir(2, range_check="logup", io_binding="rlc")
+    g1_trace, g1_pi = g1.generate_trace_and_pi(g1_inputs(G1_FIXTURE_SEED, 2, bn254))
+    with np.load(G1_FIXTURE) as f:
+        want_pi, want = f["public_inputs"], f["proof_bytes"].tobytes()
+    if not np.array_equal(g1_pi, want_pi):
+        raise AssertionError("G1ExpAir(2) public inputs differ from the fixture's")
+    got = proof_to_bytes(prove(g1, g1_trace, g1_pi, cfg, device=dev))
+    if got != want:
+        raise AssertionError("G1ExpAir(2, logup, rlc) test_config proof differs from the fixture")
+    print(f"fidelity: G1ExpAir(2, logup, rlc) test_config proof == fixture ({len(got)} bytes)")
+
 
 def _phase_ms(tt) -> dict[str, float]:
     """The TimingTree's scopes as {"a/b": ms}."""
@@ -412,13 +511,17 @@ def _phase_ms(tt) -> dict[str, float]:
     return flat
 
 
-def profile_prove(run) -> None:
+def profile_prove(label: str, run) -> dict:
     """torch.profiler over one warm prove: kernel launches, kernel time and
     the device busy share (kernel time over the host wall clock of the
     prove), kernel time by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from starky_bn254_tpu_torch import keccak, ntt, poseidon
+
+    modules = {"ntt": ntt, "keccak": keccak, "poseidon": poseidon}
+    before = {k: m.LAUNCHES for k, m in modules.items()}
     with tempfile.TemporaryDirectory(dir=HERE) as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -439,38 +542,40 @@ def profile_prove(run) -> None:
     launches = sum(len(v) for v in by_name.values())
     if launches == 0:
         raise AssertionError("the profiler saw no kernel on the card during a prove")
-    print(f"slice: profiled warm prove: {launches} kernel launches, {total_ms:.1f} ms of kernel time "
-          f"in {wall_s * 1e3:.1f} ms of wall clock: device busy {100 * total_ms / (wall_s * 1e3):.1f} %")
+    busy = 100 * total_ms / (wall_s * 1e3)
+    print(f"{label}: profiled warm prove: {launches} kernel launches, {total_ms:.1f} ms of kernel "
+          f"time in {wall_s * 1e3:.1f} ms of wall clock: device busy {busy:.1f} %")
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, durs in ranked[:12]:
-        print(f"slice: kernel {name}: {sum(durs):.2f} ms in {len(durs)} launches")
+        print(f"{label}: kernel {name}: {sum(durs):.2f} ms in {len(durs)} launches")
+    hand = {}
     for kernel, names in TRACE_NAMES.items():
         ms = sum(sum(by_name.get(n, [])) for n in names)
         count = sum(len(by_name.get(n, [])) for n in names)
-        print(f"slice: {kernel} kernels: {ms:.3f} ms in {count} launches")
+        counted = modules[KERNELS[kernel][0]].LAUNCHES - before[KERNELS[kernel][0]]
+        hand[kernel] = dict(ms=ms, launches=count, counted=counted)
+        print(f"{label}: {kernel} kernels: {ms:.3f} ms in {count} launches in the trace "
+              f"({counted} by the wrapper's count)")
+    return dict(kernel_launches=launches, kernel_ms=total_ms, wall_ms=wall_s * 1e3, busy_pct=busy,
+                hand_kernels=hand)
 
 
-def phase_slice(dev) -> dict:
+def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
+    """A path through the user's entry points on the card: a first prove
+    through `prove`'s default device with every kernel's launch count reset
+    just before and read just after (each must be > 0), `warm` timed warm
+    proves (median and phase table), verify, and a tampered opening
+    rejected. trace: an int64 tensor on the card."""
     import numpy as np
     import torch
 
-    from starky_bn254_tpu_torch import bn254, keccak, ntt, poseidon, xnp
-    from starky_bn254_tpu_torch.airs.fq_mul import FqMulAir
-    from starky_bn254_tpu_torch.stark import (StarkConfig, VerificationError, proof_from_bytes,
-                                              proof_to_bytes, prove, verify)
+    from starky_bn254_tpu_torch import keccak, ntt, poseidon
+    from starky_bn254_tpu_torch.stark import (VerificationError, proof_from_bytes, proof_to_bytes,
+                                              prove, verify)
     from starky_bn254_tpu_torch.utils.timing import TimingTree
 
     modules = {"ntt": ntt, "keccak": keccak, "poseidon": poseidon}
-    air = FqMulAir(SLICE_ROWS)
-    cfg = StarkConfig.standard_fast_config("keccak")
-    pi = np.zeros(0, dtype=np.uint64)
-    t0 = time.perf_counter()
-    trace_np = air.generate_trace(fq_inputs(0, SLICE_ROWS, bn254.P_BN))
-    tracegen_s = time.perf_counter() - t0
-    trace = xnp.to_torch(trace_np, dev)  # on the card before the timed proves
-    print(f"slice: FqMulAir({SLICE_ROWS}) trace {tuple(trace.shape)}, "
-          f"{len(air.permutation_pairs())} permutation pairs, tracegen {tracegen_s:.2f} s", flush=True)
-
+    dev = trace.device
     torch.cuda.reset_peak_memory_stats(dev)
     for m in modules.values():
         m.LAUNCHES = 0
@@ -481,10 +586,10 @@ def phase_slice(dev) -> dict:
     launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
 
     times, phases = [], []
-    for _ in range(WARM_PROVES):
+    for _ in range(warm):
         tt = TimingTree("prove", dev)
         t0 = time.perf_counter()
         proof = prove(air, trace, pi, cfg, timing=tt)
@@ -497,30 +602,125 @@ def phase_slice(dev) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     if ok is not True:
-        raise AssertionError("verify did not accept the slice proof")
+        raise AssertionError(f"{label}: verify did not accept the proof")
     if proof.openings.trace_zeta.shape != (air.num_columns, 2):
-        raise AssertionError("unexpected trace opening shape")
+        raise AssertionError(f"{label}: unexpected trace opening shape")
     bad = proof_from_bytes(proof_to_bytes(proof))
     bad.openings.trace_zeta[0, 0] ^= np.uint64(1)
     try:
         verify(air, bad, cfg)
     except VerificationError as e:
-        print(f"slice: tampered opening rejected ({e})")
+        print(f"{label}: tampered opening rejected ({e})")
     else:
-        raise AssertionError("a tampered opening was accepted")
+        raise AssertionError(f"{label}: a tampered opening was accepted")
 
-    print(f"slice: warm prove phases, median of {WARM_PROVES} (ms)")
+    print(f"{label}: warm prove phases, median of {warm} (ms)")
+    medians = {}
     for key in phases[0]:
-        vals = [p[key] for p in phases if key in p]
-        print(f"slice:   {statistics.median(vals):9.1f}  {key}")
+        medians[key] = statistics.median([p[key] for p in phases if key in p])
+        print(f"{label}:   {medians[key]:9.1f}  {key}")
     size = len(proof_to_bytes(proof))
     q = statistics.quantiles(times, n=4) if len(times) > 1 else times * 3
-    print(f"slice: prove_s median {statistics.median(times):.3f} (quartiles {q[0]:.3f} / {q[1]:.3f} / "
-          f"{q[2]:.3f}; {WARM_PROVES} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
-          f"tracegen_s {tracegen_s:.3f} proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
-    print(f"slice: launches in the first prove {json.dumps(launches)}")
-    profile_prove(lambda: prove(air, trace, pi, cfg))
-    return launches
+    print(f"{label}: prove_s median {statistics.median(times):.3f} (quartiles {q[0]:.3f} / {q[1]:.3f} / "
+          f"{q[2]:.3f}; {warm} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
+          f"proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
+    print(f"{label}: launches in the first prove {json.dumps(launches)}")
+    return dict(launches=launches, proof=proof, prove_s=statistics.median(times), phases=medians)
+
+
+def phase_slice(dev) -> dict:
+    import numpy as np
+
+    from starky_bn254_tpu_torch import bn254, xnp
+    from starky_bn254_tpu_torch.airs.fq_mul import FqMulAir
+    from starky_bn254_tpu_torch.stark import StarkConfig, prove
+
+    air = FqMulAir(SLICE_ROWS)
+    cfg = StarkConfig.standard_fast_config("keccak")
+    pi = np.zeros(0, dtype=np.uint64)
+    t0 = time.perf_counter()
+    trace_np = air.generate_trace(fq_inputs(0, SLICE_ROWS, bn254.P_BN))
+    tracegen_s = time.perf_counter() - t0
+    trace = xnp.to_torch(trace_np, dev)  # on the card before the timed proves
+    print(f"slice: FqMulAir({SLICE_ROWS}) trace {tuple(trace.shape)}, "
+          f"{len(air.permutation_pairs())} permutation pairs, tracegen_s {tracegen_s:.3f}", flush=True)
+    r = drive("slice", air, trace, pi, cfg, WARM_PROVES)
+    profile_prove("slice", lambda: prove(air, trace, pi, cfg))
+    return r["launches"]
+
+
+def phase_g1(dev, native_build_s: float) -> dict:
+    """The bench's main path (bench.py:48-238) at its full size."""
+    import torch
+
+    from starky_bn254_tpu_torch import bn254, xnp
+    from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
+    from starky_bn254_tpu_torch.stark import StarkConfig, VerificationError, logup, prove, verify
+    from starky_bn254_tpu_torch.utils.timing import TimingTree
+
+    air = G1ExpAir(G1_NUM_IO)
+    cfg = StarkConfig.standard_fast_config("keccak")
+    inputs = g1_inputs(0, G1_NUM_IO, bn254)  # bench.py: default_rng(0)
+    trace_np, pi = None, None
+    gen_s = []
+    for _ in range(2):  # cold (first use of the native library), then warm
+        t0 = time.perf_counter()
+        trace_np, pi = air.generate_trace_and_pi(inputs)
+        gen_s.append(time.perf_counter() - t0)
+    trace = xnp.to_torch(trace_np, dev)
+    aux_w = cfg.num_challenges * (logup.table_aux_width(air.lookup_tables()) + air.aux_extra_width())
+    print(f"g1: G1ExpAir({G1_NUM_IO}) {air.range_check} range check, {air.io_binding} IO binding: "
+          f"trace {tuple(trace.shape)}, {aux_w} aux columns; native build {native_build_s:.2f} s, "
+          f"tracegen_s cold {gen_s[0]:.3f} warm {gen_s[1]:.3f}", flush=True)
+    if (tuple(trace.shape), aux_w) != G1_SHAPES:
+        raise AssertionError(f"g1: unexpected shapes {tuple(trace.shape)}, {aux_w} aux columns")
+
+    r = drive("g1", air, trace, pi, cfg, G1_WARM_PROVES)
+    for sub in ("logup", "rlc aux"):
+        if f"aux (Z/logup) commit/column build/{sub}" not in r["phases"]:
+            raise AssertionError(f"g1: no {sub!r} phase in the prove's timing tree")
+
+    swapped = prove(air, trace, swap_instances(pi, G1_NUM_IO), cfg)
+    try:
+        verify(air, swapped, cfg)
+    except VerificationError as e:
+        print(f"g1: proof of two swapped instances rejected ({e})")
+    else:
+        raise AssertionError("g1: the proof of two swapped instances was accepted")
+
+    r["profile"] = profile_prove("g1", lambda: prove(air, trace, pi, cfg))
+
+    # the logUp column build by both routes at this shape
+    tables, gammas = air.lookup_tables(), [0x1234_5678_9ABC, 0xFEDC_BA98_7654]
+    cols = {route: logup.compute_logup_columns(trace, tables, gammas, route)
+            for route in ("fermat", "table")}
+    check_equal("logup columns, table route against the fermat route", cols["table"], cols["fermat"])
+    del cols
+    route_ms = {route: cuda_ms(lambda: logup.compute_logup_columns(trace, tables, gammas, route), 2)
+                for route in ("fermat", "table")}
+    default = logup.pick_route(trace.shape[0], tables)
+    print(f"g1: logup columns [{trace.shape[0]}, {aux_w - 2 * air.aux_extra_width()}], both routes "
+          f"equal: fermat {route_ms['fermat']:.2f} ms, table {route_ms['table']:.2f} ms; "
+          f"compute_logup_columns takes {default!r}")
+    if route_ms[default] > min(route_ms.values()):
+        raise AssertionError(f"g1: the default logUp route {default!r} is the slower one here")
+    r["logup_route_ms"] = route_ms
+
+    pcfg = StarkConfig.standard_fast_config("poseidon")
+    tt = TimingTree("prove", dev)
+    t0 = time.perf_counter()
+    proof = prove(air, trace, pi, pcfg, timing=tt)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if verify(air, proof, pcfg) is not True:
+        raise AssertionError("g1: verify did not accept the poseidon-config proof")
+    verify_s = time.perf_counter() - t0
+    ph = _phase_ms(tt)
+    print(f"g1: standard_fast_config('poseidon'): prove {prove_s:.3f} s, trace commit "
+          f"{ph['trace commit']:.1f} ms, aux commit/commit {ph['aux (Z/logup) commit/commit']:.1f} ms, "
+          f"verify_s {verify_s:.3f}, accepted")
+    return r
 
 
 def main() -> int:
@@ -529,15 +729,18 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    bounds = phase_build(sms, clock)
+    bounds, native_build_s = phase_build(sms, clock)
     kernel_stats = phase_kernels(dev, bounds)
     phase_fidelity(dev)
-    launches = phase_slice(dev)
+    slice_launches = phase_slice(dev)
+    torch.cuda.empty_cache()
+    g1 = phase_g1(dev, native_build_s)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = kernel_stats[name]
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                   launches=g1["launches"][name], launches_fq_mul=slice_launches[name],
+                   max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=None, shape=r["shape"])
         row.update({k: v for k, v in r.items() if k not in row and k not in ("bytes", "int_ops")})

@@ -56,6 +56,43 @@ def const_lanes(ints, ext: bool) -> Val:
     return Val(xnp.asarray(arr), False)
 
 
+def pol_add(a: Val, b: Val) -> Val:
+    """a + b with zero-extension to the longer length."""
+    ka, kb = num_lanes(a), num_lanes(b)
+    total = max(ka, kb)
+    if ka < total:
+        a = lane_pad(a, total)
+    if kb < total:
+        b = lane_pad(b, total)
+    return a + b
+
+
+def pol_sub(a: Val, b: Val) -> Val:
+    ka, kb = num_lanes(a), num_lanes(b)
+    total = max(ka, kb)
+    if ka < total:
+        a = lane_pad(a, total)
+    if kb < total:
+        b = lane_pad(b, total)
+    return a - b
+
+
+def pol_mul_scalar(a: Val, c: int) -> Val:
+    return a * c
+
+
+def u16_to_u32_lanes(v: Val) -> Val:
+    """[.., 16] u16 lanes -> [.., 8] u32 lanes: even + 2^16 * odd (the JAX
+    package keeps it in airs/fq_exp.py)."""
+    if v.ext:
+        even = Val(v.arr[..., 0::2, :], True)
+        odd = Val(v.arr[..., 1::2, :], True)
+    else:
+        even = Val(v.arr[..., 0::2], False)
+        odd = Val(v.arr[..., 1::2], False)
+    return even + odd * (1 << 16)
+
+
 def pol_mul_wide(a: Val, b: Val, out_len: int | None = None) -> Val:
     """Schoolbook polynomial product along the lane axis.
 

@@ -1,7 +1,7 @@
 """Modular-reduction gadget: the heart of every BN254 AIR.
 
 Re-derivation of the reference's core trick (src/modular/modular.rs:38-257,
-addcy.rs:16-58): to prove c == input mod m with
+modular_zero.rs:33-171, addcy.rs:16-58): to prove c == input mod m with
 16-bit limb polynomials, witness quotient q and auxiliary polynomial s with
 
     input(x) - c(x) - q(x) * m(x) = (x - beta) * s(x),   beta = 2^16,
@@ -32,6 +32,9 @@ from .limbs import BETA, const_lanes, lane_pad, pol_adjoin_root, pol_mul_wide
 from .. import goldilocks as gl
 
 AUX_COEFF_ABS_MAX = 1 << 29
+
+# the modular-zero gadget's column footprint (reference modular_zero.rs:174-197)
+AUX_ZERO_COLS = 5 * N_LIMBS - 1  # quot_abs(17) lo(31) hi(31)
 
 GOLDILOCKS_INV_BETA = pow(BETA, gl.P - 2, gl.P)
 
@@ -99,6 +102,46 @@ def generate_modular_op(modulus: int, pol_input: list[int]) -> dict:
         "aux_lo": lo,
         "aux_hi": hi,
         "output_int": output,
+    }
+
+
+def generate_modular_zero(modulus: int, pol_input: list[int]) -> dict:
+    """Same trick specialized to input === 0 mod m (no output columns);
+    reference src/modular/modular_zero.rs:33-80."""
+    assert len(pol_input) == 2 * N_LIMBS - 1
+    value = signed_limbs_to_int(pol_input)
+    assert value % modulus == 0, "modular-zero witness: input not divisible"
+    quot = value // modulus
+    quot_sign = 1 if quot >= 0 else -1
+
+    quot_abs_limbs = int_to_limbs(abs(quot), N_LIMBS + 1)
+    m_limbs = int_to_limbs(modulus, N_LIMBS)
+    q_limbs = int_to_signed_limbs(quot, N_LIMBS + 1)
+    constr = list(pol_input) + [0]
+    for i in range(N_LIMBS + 1):
+        for j in range(N_LIMBS):
+            constr[i + j] -= q_limbs[i] * m_limbs[j]
+    aux = _divide_by_x_minus_beta(constr)
+    lo, hi = _aux_split(aux)
+    return {
+        "quot_sign": 1 if quot_sign == 1 else gl.P - 1,
+        "quot_abs": quot_abs_limbs,
+        "aux_lo": lo,
+        "aux_hi": hi,
+    }
+
+
+def zero_modular_aux() -> dict:
+    """Filler witness for filtered-off rows (filter = 0): all-zero aux with
+    quot_sign = 1, matching FqOutput::default (reference fq/mul.rs:24-32)."""
+    return {
+        "output": [0] * N_LIMBS,
+        "quot_sign": 1,
+        "out_aux_red": [0] * N_LIMBS,
+        "quot_abs": [0] * (N_LIMBS + 1),
+        "aux_lo": [0] * (2 * N_LIMBS - 1),
+        "aux_hi": [0] * (2 * N_LIMBS - 1),
+        "output_int": 0,
     }
 
 
@@ -175,6 +218,26 @@ def eval_modular_op(
 
     constr = pol_mul_wide(quot, m_lanes)  # [.., 32]
     constr = constr + lane_pad(output, 2 * N_LIMBS)
+    constr = constr + pol_adjoin_root(_aux_poly(aux_lo, aux_hi), BETA)
+    constr = constr - lane_pad(input_pol, 2 * N_LIMBS)
+    cc.constraint(filter_v.lane() * constr)
+
+
+def eval_modular_zero(
+    cc: ConstraintConsumer,
+    filter_v: Val,
+    modulus: int,
+    input_pol: Val,  # [.., 31]
+    quot_sign: Val,
+    quot_abs: Val,  # [.., 17]
+    aux_lo: Val,
+    aux_hi: Val,
+):
+    ext = filter_v.ext
+    m_lanes = const_lanes(int_to_limbs(modulus, N_LIMBS), ext)
+    cc.constraint(filter_v * (quot_sign * quot_sign - 1))
+    quot = quot_sign.lane() * quot_abs
+    constr = pol_mul_wide(quot, m_lanes)
     constr = constr + pol_adjoin_root(_aux_poly(aux_lo, aux_hi), BETA)
     constr = constr - lane_pad(input_pol, 2 * N_LIMBS)
     cc.constraint(filter_v.lane() * constr)

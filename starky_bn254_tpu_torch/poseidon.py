@@ -12,7 +12,7 @@ circ(FAST_MDS_ROW) + diag(MDS_DIAG). `set_params` swaps the whole set and
 launches the kernel with the current constants as device tables, in the
 layout `_sponge_form` picks from the row count and the MDS form
 `_small_mds` picks from the parameters; on a CPU tensor it runs
-`_sponge_plain`. `grind_batch` is the fused proof-of-work batch (kernel
+`_sponge_plain` on numpy. `grind_batch` is the fused proof-of-work batch (kernel
 entry starky_poseidon_grind, plain twin `_grind_plain`).
 
 All functions are batched: a state batch has shape [..., 12] int64.
@@ -141,11 +141,8 @@ def _table(name: str, device) -> torch.Tensor:
             arr = mds
         elif name == "row":
             arr = np.array(FAST_MDS_ROW, dtype=np.uint64)
-        elif name == "diag":
+        else:
             arr = np.array(MDS_DIAG, dtype=np.uint64)
-        else:  # "gather": out[i] = sum_d row[d] * s[(i + d) % 12]
-            arr = np.array([[(i + d) % WIDTH for d in range(WIDTH)]
-                            for i in range(WIDTH)], dtype=np.uint64)
         _TABLES[key] = xnp.to_torch(np.ascontiguousarray(arr), device)
     return _TABLES[key]
 
@@ -169,53 +166,61 @@ def _sponge_form(n_rows: int) -> str:
     return "coop" if n_rows <= COOP_MAX_ROWS else "row"
 
 
-def _mds_layer(state: torch.Tensor) -> torch.Tensor:
+def _mds_layer(state):
     """M = circ(row) + diag(diag). With every entry <= 2^16 each term's
     32-bit halves times the entry stay < 2^48 and 13 terms sum < 2^53, so
     the two half-sums are exact and one 128-bit reduction finishes (the JAX
     package's shift/mul16 forms); larger entries take the dense modmul
-    matvec. Both give the canonical residue of the same sum."""
-    dev = state.device
+    matvec. Both give the canonical residue of the same sum. Runs on either
+    engine (int64 tensors or numpy uint64)."""
+    (state,), E = gl._prep(state)
+    host = E is gl._NumpyOps
     if not _small_mds():
-        prod = gl.mul(state[..., None, :], _table("mds", dev))
-        return gl.sum_mod(prod, axis=-1)
-    E = gl._TorchOps
-    g = state[..., _table("gather", dev)]  # [..., out, d]
-    row = _table("row", dev)
-    diag = _table("diag", dev)
-    b = ((g & E.MASK) * row).sum(dim=-1) + (state & E.MASK) * diag  # < 2^53
-    a = (E.shr(g, 32) * row).sum(dim=-1) + E.shr(state, 32) * diag
+        mds = _constants()[1] if host else _table("mds", state.device)
+        return gl.sum_mod(gl.mul(state[..., None, :], mds), axis=-1)
+    diag = np.array(MDS_DIAG, dtype=np.uint64) if host else _table("diag", state.device)
+
+    def circ(x):
+        # out[i] = sum_d row[d] * x[(i + d) % 12], over views of [x | x]
+        xx = xnp.concatenate([x, x], axis=-1)
+        acc = x * diag
+        for d, c in enumerate(FAST_MDS_ROW):
+            acc = acc + xx[..., d : d + WIDTH] * c
+        return acc
+
+    b = circ(state & E.MASK)  # < 2^53
+    a = circ(E.shr(state, 32))
     v_lo_part = E.shl(a & E.MASK, 32)
     v_lo = v_lo_part + b
     carry = E.from_bool(E.lt(v_lo, v_lo_part))
     return gl._reduce128(E.shr(a, 32) + carry, v_lo)
 
 
-def _permute_plain(state: torch.Tensor) -> torch.Tensor:
-    """30-round permutation in torch ops (any device)."""
-    rc = _table("rc", state.device)
+def _permute_plain(state):
+    """30-round permutation in plain array ops: torch (any device) or numpy."""
+    rc = _constants()[0] if isinstance(state, np.ndarray) else _table("rc", state.device)
     half = FULL_ROUNDS // 2
     for r in range(FULL_ROUNDS + PARTIAL_ROUNDS):
         state = gl.add(state, rc[r])
         if r < half or r >= half + PARTIAL_ROUNDS:
             state = _sbox(state)
         else:
-            state = torch.cat([_sbox(state[..., :1]), state[..., 1:]], dim=-1)
+            state = xnp.concatenate([_sbox(state[..., :1]), state[..., 1:]], axis=-1)
         state = _mds_layer(state)
     return state
 
 
 def _sponge_plain(state, block, out_words: int):
+    """The sponge in plain array ops, on block's engine (an int64 tensor on
+    any device, or a numpy uint64 array)."""
+    (block,), E = gl._prep(block)
     n, width = block.shape
-    st = (
-        torch.zeros((n, WIDTH), dtype=torch.int64, device=block.device)
-        if state is None else state
-    )
+    st = E.zeros((n, WIDTH), block) if state is None else state
     for off in range(0, width, RATE):
         chunk = block[:, off : off + RATE]
         if chunk.shape[1] < RATE:  # zero-padded tail chunk
-            chunk = torch.nn.functional.pad(chunk, (0, RATE - chunk.shape[1]))
-        st = _permute_plain(torch.cat([chunk, st[:, RATE:]], dim=1))
+            chunk = xnp.pad(chunk, ((0, 0), (0, RATE - chunk.shape[1])))
+        st = _permute_plain(xnp.concatenate([chunk, st[:, RATE:]], axis=1))
     return st[:, :out_words]
 
 
@@ -258,7 +263,9 @@ def _sponge(state, block, out_words: int):
     if block.device.type == "cuda":
         out = _sponge_cuda(state2, block2, out_words)
     elif block.device.type == "cpu":
-        out = _sponge_plain(state2, block2, out_words)
+        # numpy: faster than torch on one CPU thread, from 1 row to 8192
+        out = xnp.to_torch(_sponge_plain(None if state2 is None else xnp.to_numpy(state2),
+                                         xnp.to_numpy(block2), out_words))
     else:
         raise ValueError(f"poseidon: unsupported device {block.device}")
     return out.reshape(batch + (out_words,))

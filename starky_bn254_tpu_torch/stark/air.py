@@ -29,15 +29,25 @@ class Air:
     def lookup_tables(self) -> list[tuple[int, int, tuple[int, ...]]]:
         """logUp (log-derivative) lookups: (table_col, mult_col,
         checked_cols). Proves every checked cell appears in the table via
-            sum_cells 1/(gamma + cell) == sum_rows mult/(gamma + table).
-        The port's prover does not handle lookup tables yet (prove() raises
-        NotImplementedError for an AIR that returns any)."""
+            sum_cells 1/(gamma + cell) == sum_rows mult/(gamma + table)
+        (stark/logup.py builds the aux columns and emits the constraints)."""
         return []
 
     def aux_extra_width(self) -> int:
         """Number of AIR-defined auxiliary columns per challenge (committed in
         the second phase alongside Z/logUp columns; challenge-dependent)."""
         return 0
+
+    def generate_aux(self, trace, gammas: list[int]):
+        """Builds the AIR-defined aux columns on the host:
+        trace [n, C] numpy -> [n, len(gammas) * aux_extra_width()] uint64."""
+        raise NotImplementedError
+
+    def eval_extra(self, lv, nv, aux_lv, aux_nv, gammas, pi, cc, aux_offset: int):
+        """Constraints over the AIR-defined aux columns (both prover rows and
+        verifier scalars); aux_offset = first AIR-aux column index inside the
+        aux commitment."""
+        raise NotImplementedError
 
     def eval(
         self,

@@ -1,12 +1,13 @@
 """Row-blocked constraint composition.
 
 The prover evaluates the AIR's constraints (plus the framework's
-permutation constraints) over every LDE point: `air.eval` runs eagerly on
-int64 tensors over row blocks of the LDE, on the LDE's device, and the
-`ConstraintConsumer` folds the constraints with the alpha-Horner recurrence
-acc = acc * alpha^k + term in the same order and with the same lane
-arithmetic as the verifier's replay at zeta (`evaluate_composition_at_zeta`,
-which runs the identical `air.eval` on host numpy extension scalars).
+permutation and logUp constraints and the AIR's aux constraints) over every
+LDE point: `air.eval` runs eagerly on int64 tensors over row blocks of the
+LDE, on the LDE's device, and the `ConstraintConsumer` folds the
+constraints with the alpha-Horner recurrence acc = acc * alpha^k + term in
+the same order and with the same lane arithmetic as the verifier's replay
+at zeta (`evaluate_composition_at_zeta`, which runs the identical
+`air.eval` on host numpy extension scalars).
 
 Constraint evaluation is row-local (lv/nv only), so a block needs just
 `blowup` halo rows. The block height is chosen from the device's free
@@ -54,14 +55,26 @@ def pick_block_rows(n_lde: int, width: int, device: torch.device) -> int:
 
 
 def _emit_constraints(air: Air, lv, nv, z_lv, z_nv, pi, gammas_v, cc, ext: bool):
-    """AIR constraints then the framework's permutation constraints: the one
-    order shared by prover and verifier."""
+    """AIR constraints, then over the aux block [Z | logUp | extra] the
+    framework's permutation constraints, the logUp constraints and the
+    AIR's own aux constraints: the one order shared by prover and verifier
+    (the JAX package's composition.py:105-122)."""
+    from .logup import logup_constraints, table_aux_width
     from .prover import permutation_constraints
 
     air.eval(lv, nv, pi, cc)
+    if z_lv is None:
+        return
+    nc = len(gammas_v)
     pairs = air.permutation_pairs()
-    if z_lv is not None and pairs:
+    tables = air.lookup_tables()
+    if pairs:
         permutation_constraints(pairs, gammas_v, lv, nv, z_lv, z_nv, cc, ext)
+    if tables:
+        logup_constraints(tables, gammas_v, lv, nv, z_lv, z_nv, cc, aux_offset=nc * len(pairs))
+    if air.aux_extra_width():
+        air.eval_extra(lv, nv, z_lv, z_nv, gammas_v, pi, cc,
+                       aux_offset=nc * (len(pairs) + table_aux_width(tables)))
 
 
 def evaluate_composition(

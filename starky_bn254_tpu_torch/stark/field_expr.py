@@ -114,6 +114,13 @@ def stack_vals(vals: list[Val]) -> Val:
     return Val(xnp.stack([v.arr for v in vals], axis=axis), ext)
 
 
+def lane_concat(vals: list[Val]) -> Val:
+    """Concatenate lane-stacked Vals along the lane axis."""
+    ext = vals[0].ext
+    axis = -2 if ext else -1
+    return Val(xnp.concatenate([v.arr for v in vals], axis=axis), ext)
+
+
 class RowView:
     """Column accessor over either an LDE row-block (prover) or a vector of
     opened values at a point (verifier).

@@ -1,15 +1,17 @@
-"""STARK prover: trace commit -> permutation Z -> quotient -> FRI.
+"""STARK prover: trace commit -> aux columns -> quotient -> FRI.
 
   trace [n, C] --INTT--> coeffs --coset NTT--> LDE [N, C] --Merkle--> cap
       |                                            |
-      +-- permutation Z columns (prefix products) --> Z cap
+      +-- aux block [permutation Z (prefix products) | logUp running sums
+      |   | AIR-defined columns (RLC IO binding)] --> aux cap
       +-- composition: AIR.eval over LDE row blocks
       +-- quotient chunks --> cap --> openings at zeta, g*zeta --> FRI
 
 `prove` runs on the CUDA card unless the caller names another device
 (`device="cpu"`): every intermediate tensor stays there (the NTTs, Merkle
-hashing and grind through the CUDA kernels on a card), and only the
-Fiat-Shamir transcript runs on the host.
+hashing and grind through the CUDA kernels on a card). The host runs the
+Fiat-Shamir transcript and the AIR-defined aux columns (`generate_aux`,
+from one copy of the trace per prove).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .config import StarkConfig
 from .consumer import ConstraintConsumer
 from .field_expr import RowView
 from .fri import fri_prove
+from .logup import compute_logup_columns
 from .proof import StarkOpenings, StarkProof
 
 QUOTIENT_CHUNKS = 2  # constraint degree 3 => quotient degree < 2n
@@ -165,8 +168,6 @@ def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
         raise NotImplementedError("sharded proving is not ported yet")
     if cfg.fri.parity:
         raise NotImplementedError("transcript-parity mode is not ported yet")
-    if air.lookup_tables() or air.aux_extra_width():
-        raise NotImplementedError("logUp and AIR-defined aux columns are not ported yet")
 
     tt = timing if timing is not None else TimingTree("prove", dev)
     n, num_cols = trace.shape
@@ -185,15 +186,30 @@ def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
             trace_c = commit(trace, cfg)
         challenger.observe_cap(trace_c.tree.cap)
 
-        # 2. permutation Z columns
+        # 2. auxiliary columns [Z | logUp | AIR-defined], committed together
         pairs = air.permutation_pairs()
+        tables = air.lookup_tables()
+        extra_w = air.aux_extra_width()
         z_c = None
         gammas: list[int] = []
-        if pairs:
+        if pairs or tables or extra_w:
             gammas = challenger.get_n_challenges(nc)
             with tt.scope("aux (Z/logup) commit"):
                 with tt.scope("column build"):
-                    z_cols = compute_z_columns(trace, pairs, gammas)
+                    parts = []
+                    if pairs:
+                        parts.append(compute_z_columns(trace, pairs, gammas))
+                    if tables:
+                        with tt.scope("logup"):
+                            parts.append(compute_logup_columns(trace, tables, gammas))
+                    if extra_w:
+                        # built on the host from one copy of the trace
+                        with tt.scope("rlc aux"):
+                            host_trace = xnp.to_numpy(trace)
+                            parts.append(xnp.to_torch(air.generate_aux(host_trace, gammas), dev))
+                            del host_trace
+                    z_cols = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+                    del parts
                 with tt.scope("commit"):
                     z_c = commit(z_cols, cfg)
                 del z_cols

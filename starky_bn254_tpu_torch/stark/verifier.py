@@ -23,6 +23,7 @@ from .fri import (
     fri_verify_query_layers,
     verify_merkle_batch,
 )
+from .logup import table_aux_width
 from .proof import StarkProof
 from .prover import QUOTIENT_CHUNKS
 
@@ -44,8 +45,6 @@ def verify(air: Air, proof: StarkProof, cfg: StarkConfig) -> bool:
     """Verify a STARK proof; raises VerificationError on any failed check."""
     if cfg.fri.parity:
         raise NotImplementedError("transcript-parity mode is not ported yet")
-    if air.lookup_tables() or air.aux_extra_width():
-        raise NotImplementedError("logUp and AIR-defined aux columns are not ported yet")
     # the numpy constraint replay wraps u64 on purpose (branchless reduction)
     with np.errstate(over="ignore"):
         return _verify_impl(air, proof, cfg)
@@ -56,8 +55,10 @@ def _verify_impl(air: Air, proof: StarkProof, cfg: StarkConfig) -> bool:
     n_lde = n << cfg.fri.rate_bits
     nc = cfg.num_challenges
     pairs = air.permutation_pairs()
-    has_aux = bool(pairs)
-    aux_width = nc * len(pairs)
+    tables = air.lookup_tables()
+    extra_w = air.aux_extra_width()
+    has_aux = bool(pairs or tables or extra_w)
+    aux_width = nc * (len(pairs) + table_aux_width(tables) + extra_w)
 
     _require(proof.openings.trace_zeta.shape == (air.num_columns, 2), "trace openings shape")
     _require(
