@@ -17,7 +17,8 @@ lines; any failure raises and the exit code is non-zero:
    K1 butterfly and K3 round as the kernels run them, counted in the SASS
    of csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
-   on the card, at both paths' shapes (FqMulAir's and G1ExpAir(128)'s);
+   on the card, at every path's shapes (FqMulAir's, and G1ExpAir(128)'s,
+   FqExpAir(128)'s and G2ExpAir(128)'s);
    exact equality (all arithmetic is exact mod p); kernel and plain times;
    each kernel's bound, the larger of its compulsory bytes over the HBM
    rate and the integer instructions of the work its function needs over
@@ -30,8 +31,9 @@ lines; any failure raises and the exit code is non-zero:
    tests/fixtures/fq_mul_256_test_config.npz byte for byte, and
    G1ExpAir(2, logup, rlc) under test_config
    tests/fixtures/g1_exp_2_rlc_test_config.npz (both made by the JAX
-   package); the seed-7 digest and the keccak test-config digest pinned by
-   the CPU tests must match;
+   package), and likewise FqExpAir(2, logup, rlc) and G2ExpAir(1, logup,
+   rlc) against their fixtures; the seed-7 digest and the keccak
+   test-config digest pinned by the CPU tests must match;
 5. slice: FqMulAir(65536) (812 trace + 888 permutation columns) under
    standard_fast_config("keccak"): trace generation, a first prove through
    `prove`'s default device (the card) with every kernel's launch count
@@ -48,7 +50,21 @@ lines; any failure raises and the exit code is non-zero:
    instance-swapped proof rejected, the profile of one more warm prove, the
    logUp column build by both routes (equal, each timed), and one prove
    under standard_fast_config("poseidon"), verified;
-7. the kernel JSON line, the card's line, then the result line.
+7. fq, the bench's second statement (STARKY_BENCH_AIR=fq): FqExpAir(128)
+   (65536 x 164 trace, 152 aux columns) under the keccak config, inputs as
+   bench.py makes them: tracegen cold and warm, the steps of 6 (first
+   prove with launch counts, warm proves, verify, tampered and
+   instance-swapped proofs rejected);
+8. g2: G2ExpAir(128) (65536 x 788 trace, 770 aux columns), inputs
+   g2_mul(G2_GEN, scalar) from default_rng(0): the steps of 7, peak device
+   memory and the profile of one warm prove;
+9. g1-pipelined, the bench's service tier (bench.py:196-236): four
+   G1ExpAir(128) batches, each from its own seed, through prove_pipelined
+   with the launch counts reset and read around it; each proof must equal
+   the bytes of a sequential prove of its batch and verify; the steady and
+   fill rates beside the serial num_io / (tracegen + prove) of the same
+   batches;
+10. the kernel JSON line, the card's line, then the result line.
 """
 
 from __future__ import annotations
@@ -65,6 +81,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_mul_256_test_config.npz")
 G1_FIXTURE = os.path.join(HERE, "tests", "fixtures", "g1_exp_2_rlc_test_config.npz")
 G1_FIXTURE_SEED = 2026  # tests/test_torch_g1_e2e.py: the fixture's pinned inputs
+FQ_EXP_FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_exp_2_rlc_test_config.npz")
+G2_FIXTURE = os.path.join(HERE, "tests", "fixtures", "g2_exp_1_rlc_test_config.npz")
 SEED7_DIGEST = "10cb158ab61caf68"
 KECCAK_DIGEST = "d9399851e8b42e5a"
 SLICE_ROWS = 1 << 16
@@ -72,7 +90,14 @@ WARM_PROVES = 5  # the slice's prove_s is their median
 G1_NUM_IO = 128  # bench.py's default: 65536 rows
 G1_SHAPES = ((1 << 16, 404), 390)  # its trace and its aux columns, uncut
 G1_WARM_PROVES = 3  # the g1 phase's prove_s is their median
-G1_NTT_SHAPES = [(65536, 404), (131072, 404), (65536, 390), (131072, 390)]
+FQ_EXP_SHAPES = ((1 << 16, 164), 152)
+G2_SHAPES = ((1 << 16, 788), 770)
+EXP_WARM_PROVES = 3  # the fq and g2 phases' prove_s is their median
+PIPE_BATCHES = 4  # bench.py's n_pipe
+# K1 and K2 shapes of each exp path: its trace and aux columns (K1 inverse
+# at 65536 rows, forward LDE at 131072; K2 hashes the 131072-row leaves)
+PATH_WIDTHS = {"g1": (404, 390), "fq": (164, 152), "g2": (788, 770)}
+NARROW_NTT_SHAPES = [(131072, 2), (131072,), (65536, 4)]  # quotient and FRI final poly
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
 
@@ -112,6 +137,36 @@ def g1_inputs(seed: int, count: int, bn254):
         return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
 
     return [(bn254.g1_mul(bn254.G1_GEN, rand_scalar()), bn254.g1_mul(bn254.G1_GEN, rand_scalar()),
+             rand_scalar()) for _ in range(count)]
+
+
+def fq_exp_inputs(seed: int, count: int, bn254):
+    """(x, offset, exponent) per instance, generated as bench.py:89-97 does
+    (and tests/test_torch_fq_exp_e2e.py, whose fixture pins seed 2026)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
+
+    def rand_fq():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.P_BN
+
+    return [(rand_fq(), rand_fq(), rand_scalar()) for _ in range(count)]
+
+
+def g2_inputs(seed: int, count: int, bn254):
+    """(x, offset, scalar) per instance, x and offset multiples of the G2
+    generator (tests/test_torch_g2_e2e.py, whose fixture pins seed 2026)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
+
+    return [(bn254.g2_mul(bn254.G2_GEN, rand_scalar()), bn254.g2_mul(bn254.G2_GEN, rand_scalar()),
              rand_scalar()) for _ in range(count)]
 
 
@@ -280,11 +335,15 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
 
     out = {}
 
-    # K1: every transform shape of both paths, both directions, and a column slice
+    # K1: every transform shape of every path, both directions, and a column slice
     errs = []
-    g1_shapes = []  # the G1 path's shapes, for the kernel line
-    for shape in [(65536, 812), (131072, 812), (65536, 888), (131072, 888), (131072, 2),
-                  (131072,), (65536, 4)] + G1_NTT_SHAPES:
+    # the shapes recorded in the kernel line: each exp path's trace and aux
+    # transforms, and the narrow ones every path shares
+    recorded = {(n, c): path for path, widths in PATH_WIDTHS.items()
+                for c in widths for n in (65536, 131072)}
+    recorded.update({shape: "narrow" for shape in NARROW_NTT_SHAPES})
+    ntt_rows = {key: [] for key in list(PATH_WIDTHS) + ["narrow"]}
+    for shape in [(65536, 812), (131072, 812), (65536, 888), (131072, 888)] + list(recorded):
         x = field(*shape)
         n, c = shape[0], (shape[1] if len(shape) > 1 else 1)
         for inverse in (False, True):
@@ -295,11 +354,13 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
             ms = cuda_ms(lambda: ntt.ntt(x, inverse))
             passes = (ntt.LAUNCHES - before) // 4
             r = dict(ms=ms, **bounds.ntt(n, c, inverse))
+            if shape in recorded:
+                r["plain_ms"] = cuda_ms(lambda: ntt._ntt_plain(x, inverse), 1)
+                ntt_rows[recorded[shape]].append(dict(
+                    shape=list(shape), inverse=inverse, passes=passes, max_abs_err=err, ms=ms,
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
             show(f"ntt {list(shape)} {'inverse' if inverse else 'forward'} ({passes} passes), equal", r)
-            if shape in G1_NTT_SHAPES:
-                g1_shapes.append(dict(shape=list(shape), inverse=inverse, max_abs_err=err, ms=ms,
-                                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x, inverse), 1),
-                                      bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
+        del x
     wide = field(65536, 900)
     view = wide[:, 5:817]  # a column slice: the wrapper reads it in place (row stride 900)
     for inverse in (False, True):
@@ -310,7 +371,7 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
     x = field(131072, 888)
     out["ntt"] = dict(max_abs_err=max(errs), shape=[131072, 888], ms=cuda_ms(lambda: ntt.ntt(x)),
                       plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1), **bounds.ntt(131072, 888, False),
-                      g1_shapes=g1_shapes)
+                      **{f"{key}_shapes": rows for key, rows in ntt_rows.items()})
     show("ntt [131072, 888] forward", out["ntt"])
     del x
 
@@ -330,17 +391,20 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
                 keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
     show("keccak hash_no_pad [131072, 888] (the Z-column leaves), equal",
          dict(ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), **bounds.keccak(131072, 888)))
-    g1_shapes = []
-    for width in (404, 390):  # the G1 trace and aux leaves
-        leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, width), dtype=np.uint64), dev)
-        err = check_equal(f"keccak hash_no_pad [131072, {width}]", keccak.hash_no_pad(leaves),
-                          keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
-        r = dict(shape=[131072, width], max_abs_err=err, ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
-                 plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST), 1),
-                 **bounds.keccak(131072, width))
-        show(f"keccak hash_no_pad [131072, {width}] (G1 leaves), equal", r)
-        g1_shapes.append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
-    out["keccak_sponge"]["g1_shapes"] = g1_shapes
+    for path, widths in PATH_WIDTHS.items():  # each exp path's trace and aux leaves
+        rows = []
+        for width in widths:
+            leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, width), dtype=np.uint64), dev)
+            err = check_equal(f"keccak hash_no_pad [131072, {width}]", keccak.hash_no_pad(leaves),
+                              keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+            r = dict(shape=[131072, width], max_abs_err=err,
+                     ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
+                     plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST),
+                                      1),
+                     **bounds.keccak(131072, width))
+            show(f"keccak hash_no_pad [131072, {width}] ({path} leaves), equal", r)
+            rows.append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
+        out["keccak_sponge"][f"{path}_shapes"] = rows
     del leaves
 
     out["poseidon_sponge_and_grind"] = phase_poseidon(dev, bounds, field)
@@ -495,6 +559,25 @@ def phase_fidelity(dev):
         raise AssertionError("G1ExpAir(2, logup, rlc) test_config proof differs from the fixture")
     print(f"fidelity: G1ExpAir(2, logup, rlc) test_config proof == fixture ({len(got)} bytes)")
 
+    from starky_bn254_tpu_torch.airs.fq_exp import FqExpAir
+    from starky_bn254_tpu_torch.airs.g2_exp import G2ExpAir
+
+    for name, path, air, inputs in (
+        ("FqExpAir(2, logup, rlc)", FQ_EXP_FIXTURE, FqExpAir(2, range_check="logup", io_binding="rlc"),
+         fq_exp_inputs(G1_FIXTURE_SEED, 2, bn254)),
+        ("G2ExpAir(1, logup, rlc)", G2_FIXTURE, G2ExpAir(1, range_check="logup", io_binding="rlc"),
+         g2_inputs(G1_FIXTURE_SEED, 1, bn254)),
+    ):
+        trace, pi = air.generate_trace_and_pi(inputs)
+        with np.load(path) as f:
+            want_pi, want = f["public_inputs"], f["proof_bytes"].tobytes()
+        if not np.array_equal(pi, want_pi):
+            raise AssertionError(f"{name}: public inputs differ from the fixture's")
+        got = proof_to_bytes(prove(air, trace, pi, cfg, device=dev))
+        if got != want:
+            raise AssertionError(f"{name} test_config proof differs from the fixture")
+        print(f"fidelity: {name} test_config proof == fixture ({len(got)} bytes)")
+
 
 def _phase_ms(tt) -> dict[str, float]:
     """The TimingTree's scopes as {"a/b": ms}."""
@@ -625,7 +708,8 @@ def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
           f"{q[2]:.3f}; {warm} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
           f"proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
     print(f"{label}: launches in the first prove {json.dumps(launches)}")
-    return dict(launches=launches, proof=proof, prove_s=statistics.median(times), phases=medians)
+    return dict(launches=launches, proof=proof, prove_s=statistics.median(times), phases=medians,
+                verify_s=verify_s, peak_gib=peak_gib)
 
 
 def phase_slice(dev) -> dict:
@@ -649,44 +733,62 @@ def phase_slice(dev) -> dict:
     return r["launches"]
 
 
+def exp_statement(label: str, air, inputs, shapes, dev, note: str = ""):
+    """Tracegen of an exp AIR's statement, cold (the chain's first use in
+    this process) and warm; its trace on the card, its shapes checked
+    against `shapes` ((rows, columns), aux columns). Returns (trace, pi,
+    aux columns)."""
+    from starky_bn254_tpu_torch import xnp
+    from starky_bn254_tpu_torch.stark import StarkConfig, logup
+
+    nc = StarkConfig.standard_fast_config("keccak").num_challenges
+    gen_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trace_np, pi = air.generate_trace_and_pi(inputs)
+        gen_s.append(time.perf_counter() - t0)
+    trace = xnp.to_torch(trace_np, dev)
+    del trace_np
+    aux_w = nc * (logup.table_aux_width(air.lookup_tables()) + air.aux_extra_width())
+    print(f"{label}: {type(air).__name__}({air.num_io}) {air.range_check} range check, "
+          f"{air.io_binding} IO binding: trace {tuple(trace.shape)}, {aux_w} aux columns; "
+          f"{note + ', ' if note else ''}tracegen_s cold {gen_s[0]:.3f} warm {gen_s[1]:.3f}",
+          flush=True)
+    if (tuple(trace.shape), aux_w) != shapes:
+        raise AssertionError(f"{label}: unexpected shapes {tuple(trace.shape)}, {aux_w} aux columns")
+    return trace, pi, aux_w
+
+
+def reject_swapped(label: str, air, trace, pi, cfg) -> None:
+    """The proof of the trace under the public inputs with the first two
+    instances exchanged must be rejected (the RLC IO binding)."""
+    from starky_bn254_tpu_torch.stark import VerificationError, prove, verify
+
+    swapped = prove(air, trace, swap_instances(pi, air.num_io), cfg)
+    try:
+        verify(air, swapped, cfg)
+    except VerificationError as e:
+        print(f"{label}: proof of two swapped instances rejected ({e})")
+    else:
+        raise AssertionError(f"{label}: the proof of two swapped instances was accepted")
+
+
 def phase_g1(dev, native_build_s: float) -> dict:
     """The bench's main path (bench.py:48-238) at its full size."""
     import torch
 
-    from starky_bn254_tpu_torch import bn254, xnp
+    from starky_bn254_tpu_torch import bn254
     from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
-    from starky_bn254_tpu_torch.stark import StarkConfig, VerificationError, logup, prove, verify
+    from starky_bn254_tpu_torch.stark import StarkConfig, logup, prove, verify
     from starky_bn254_tpu_torch.utils.timing import TimingTree
 
     air = G1ExpAir(G1_NUM_IO)
     cfg = StarkConfig.standard_fast_config("keccak")
     inputs = g1_inputs(0, G1_NUM_IO, bn254)  # bench.py: default_rng(0)
-    trace_np, pi = None, None
-    gen_s = []
-    for _ in range(2):  # cold (first use of the native library), then warm
-        t0 = time.perf_counter()
-        trace_np, pi = air.generate_trace_and_pi(inputs)
-        gen_s.append(time.perf_counter() - t0)
-    trace = xnp.to_torch(trace_np, dev)
-    aux_w = cfg.num_challenges * (logup.table_aux_width(air.lookup_tables()) + air.aux_extra_width())
-    print(f"g1: G1ExpAir({G1_NUM_IO}) {air.range_check} range check, {air.io_binding} IO binding: "
-          f"trace {tuple(trace.shape)}, {aux_w} aux columns; native build {native_build_s:.2f} s, "
-          f"tracegen_s cold {gen_s[0]:.3f} warm {gen_s[1]:.3f}", flush=True)
-    if (tuple(trace.shape), aux_w) != G1_SHAPES:
-        raise AssertionError(f"g1: unexpected shapes {tuple(trace.shape)}, {aux_w} aux columns")
-
+    trace, pi, aux_w = exp_statement("g1", air, inputs, G1_SHAPES, dev,
+                                     f"native build {native_build_s:.2f} s")
     r = drive("g1", air, trace, pi, cfg, G1_WARM_PROVES)
-    for sub in ("logup", "rlc aux"):
-        if f"aux (Z/logup) commit/column build/{sub}" not in r["phases"]:
-            raise AssertionError(f"g1: no {sub!r} phase in the prove's timing tree")
-
-    swapped = prove(air, trace, swap_instances(pi, G1_NUM_IO), cfg)
-    try:
-        verify(air, swapped, cfg)
-    except VerificationError as e:
-        print(f"g1: proof of two swapped instances rejected ({e})")
-    else:
-        raise AssertionError("g1: the proof of two swapped instances was accepted")
+    reject_swapped("g1", air, trace, pi, cfg)
 
     r["profile"] = profile_prove("g1", lambda: prove(air, trace, pi, cfg))
 
@@ -723,7 +825,106 @@ def phase_g1(dev, native_build_s: float) -> dict:
     return r
 
 
+def phase_exp(label: str, air, inputs, shapes, dev, profile: bool) -> dict:
+    """A further exp statement through the user's entry points under the
+    bench's config: the steps of phase_g1 but the logUp and Poseidon
+    comparisons."""
+    from starky_bn254_tpu_torch.stark import StarkConfig, prove
+
+    cfg = StarkConfig.standard_fast_config("keccak")
+    trace, pi, _ = exp_statement(label, air, inputs, shapes, dev)
+    r = drive(label, air, trace, pi, cfg, EXP_WARM_PROVES)
+    for sub in ("logup", "rlc aux"):
+        if f"aux (Z/logup) commit/column build/{sub}" not in r["phases"]:
+            raise AssertionError(f"{label}: no {sub!r} phase in the prove's timing tree")
+    reject_swapped(label, air, trace, pi, cfg)
+    if profile:
+        r["profile"] = profile_prove(label, lambda: prove(air, trace, pi, cfg))
+    return r
+
+
+def phase_pipelined(dev) -> dict:
+    """The bench's service tier (bench.py:196-236): PIPE_BATCHES batches of
+    G1ExpAir(128), each from its own seed, through prove_pipelined, against
+    sequential proves of the same batches."""
+    import torch
+
+    from starky_bn254_tpu_torch import bn254, keccak, ntt, poseidon, xnp
+    from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
+    from starky_bn254_tpu_torch.stark import (StarkConfig, pipeline, proof_to_bytes, prove,
+                                              prove_pipelined, verify)
+
+    air = G1ExpAir(G1_NUM_IO)
+    cfg = StarkConfig.standard_fast_config("keccak")
+    batches = [g1_inputs(seed, G1_NUM_IO, bn254) for seed in range(1, PIPE_BATCHES + 1)]
+    # the worker alone: tracegen at its thread cap, through the pipe into
+    # pinned memory, with no prove beside it
+    t0 = time.perf_counter()
+    pipeline._Tracegen(air, batches[0]).join(pin=True)
+    worker_s = time.perf_counter() - t0
+
+    modules = {"ntt": ntt, "keccak": keccak, "poseidon": poseidon}
+    for m in modules.values():
+        m.LAUNCHES = 0
+    stamps: list[float] = []
+    spans: list[tuple[float, float]] = []  # each prove's host start and end inside the pipeline
+    plain_prove = pipeline.prove
+
+    def timed_prove(*args, **kwargs):
+        start = time.time()
+        out = plain_prove(*args, **kwargs)  # the proof is on the host when it returns
+        spans.append((start, time.time()))
+        return out
+
+    pipeline.prove = timed_prove
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        proofs = prove_pipelined(air, batches, cfg, on_proof=lambda i, t: stamps.append(t))
+    finally:
+        pipeline.prove = plain_prove
+    pipe_s = time.time() - t0
+    waits = [spans[0][0] - t0] + [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"g1-pipelined: kernels not launched: {missing}")
+    fill = PIPE_BATCHES * G1_NUM_IO / pipe_s
+    steady = (PIPE_BATCHES - 1) * G1_NUM_IO / (stamps[-1] - stamps[0])
+
+    gen_s, prove_s = [], []
+    for i, (inputs, proof) in enumerate(zip(batches, proofs)):
+        t0 = time.perf_counter()
+        trace, pi = air.generate_trace_and_pi(inputs)
+        gen_s.append(time.perf_counter() - t0)
+        trace = xnp.to_torch(trace, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = prove(air, trace, pi, cfg)
+        torch.cuda.synchronize()
+        prove_s.append(time.perf_counter() - t0)
+        if proof_to_bytes(proof) != proof_to_bytes(want):
+            raise AssertionError(f"g1-pipelined: proof {i} differs from the sequential prove")
+        if verify(air, proof, cfg) is not True:
+            raise AssertionError(f"g1-pipelined: proof {i} was not accepted")
+        del trace
+    serial = G1_NUM_IO / (statistics.median(gen_s) + statistics.median(prove_s))
+    print(f"g1-pipelined: {PIPE_BATCHES} x G1ExpAir({G1_NUM_IO}) in {pipe_s:.3f} s; every proof "
+          f"equals its sequential prove's bytes and verifies; proofs done at "
+          f"{', '.join(f'{t - stamps[0]:.3f}' for t in stamps)} s after the first")
+    print(f"g1-pipelined: e2e_pipelined_per_s {steady:.3f} (steady), e2e_pipelined_fill_per_s "
+          f"{fill:.3f}; serial num_io / (tracegen + prove) {serial:.3f} (tracegen median "
+          f"{statistics.median(gen_s):.3f} s, prove median {statistics.median(prove_s):.3f} s)")
+    print(f"g1-pipelined: per batch, wait for its trace / prove (s): "
+          f"{'; '.join(f'{w:.3f} / {b - a:.3f}' for w, (a, b) in zip(waits, spans))}; "
+          f"the worker alone (tracegen at STARKY_NATIVE_THREADS=2, pipe, pinned) {worker_s:.3f} s")
+    print(f"g1-pipelined: launches in the pipelined run {json.dumps(launches)}")
+    return dict(launches=launches, steady=steady, fill=fill, serial=serial, waits=waits,
+                worker_s=worker_s)
+
+
 def main() -> int:
+    start = time.perf_counter()
     smi, sms, clock = phase_device()
     import torch
 
@@ -735,16 +936,32 @@ def main() -> int:
     slice_launches = phase_slice(dev)
     torch.cuda.empty_cache()
     g1 = phase_g1(dev, native_build_s)
+    torch.cuda.empty_cache()
+
+    from starky_bn254_tpu_torch import bn254
+    from starky_bn254_tpu_torch.airs.fq_exp import FqExpAir
+    from starky_bn254_tpu_torch.airs.g2_exp import G2ExpAir
+
+    fq = phase_exp("fq", FqExpAir(G1_NUM_IO), fq_exp_inputs(0, G1_NUM_IO, bn254), FQ_EXP_SHAPES,
+                   dev, profile=False)
+    torch.cuda.empty_cache()
+    g2 = phase_exp("g2", G2ExpAir(G1_NUM_IO), g2_inputs(0, G1_NUM_IO, bn254), G2_SHAPES, dev,
+                   profile=True)
+    torch.cuda.empty_cache()
+    pipelined = phase_pipelined(dev)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = kernel_stats[name]
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=g1["launches"][name], launches_fq_mul=slice_launches[name],
+                   launches_fq_exp=fq["launches"][name], launches_g2_exp=g2["launches"][name],
+                   launches_g1_pipelined=pipelined["launches"][name],
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=None, shape=r["shape"])
         row.update({k: v for k, v in r.items() if k not in row and k not in ("bytes", "int_ops")})
         kernels.append(row)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

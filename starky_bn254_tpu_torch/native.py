@@ -38,16 +38,25 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
+_POINT_CHAIN = (_I64, _I64,              # n, rows
+                _U16P, _U16P, _U16P, _U16P,  # ax0, ay0, bx0, by0
+                _U8P, _U8P,              # is_double, bits
+                _U64P,                   # main_out
+                _I64, _I64, _I64,        # row stride, coord and cells offsets
+                _U16P, _U16P)            # final_bx, final_by
+_FIELD_CHAIN = (_I64, _I64,              # n, rows
+                _U16P, _U16P,            # a0, b0
+                _U8P, _U8P,              # is_square, bits
+                _U64P,                   # main_out
+                _I64, _I64, _I64,        # row stride, coord and cells offsets
+                _U16P)                   # final_b
 _SIGNATURES = {
     "batch_modular_witness": (_I64, _I64P, ctypes.c_int32, _U16P, _U16P, _U16P, _U16P, _U16P,
                               _U8P),
     "batch_fq_inv": (_I64, _U16P, _U16P),
-    "g1_exp_chain": (_I64, _I64,              # n, rows
-                     _U16P, _U16P, _U16P, _U16P,  # ax0, ay0, bx0, by0
-                     _U8P, _U8P,              # is_double, bits
-                     _U64P,                   # main_out
-                     _I64, _I64, _I64,        # row stride, coord and cells offsets
-                     _U16P, _U16P),           # final_bx, final_by
+    "g1_exp_chain": _POINT_CHAIN,
+    "g2_exp_chain": _POINT_CHAIN,
+    "fq_exp_chain": _FIELD_CHAIN,
     "hist_u16_cols": (_U64P, _I64, _I64, _I64P, _I64, _I64P),
 }
 
@@ -178,6 +187,89 @@ def g1_exp_chain(
     if rc != 0:
         raise ValueError(f"native g1 chain failed at (inst*rows+row)={rc - 1}")
     return fbx.astype(np.uint64), fby.astype(np.uint64)
+
+
+def g2_exp_chain(
+    ax: np.ndarray,  # [n, 2, 16] u64 limbs (Fq2 component-major)
+    ay: np.ndarray,
+    bx: np.ndarray,
+    by: np.ndarray,
+    is_double: np.ndarray,  # [rows] bool/u8
+    bits: np.ndarray,  # [n, rows] bool/u8
+    main: np.ndarray,  # [n, rows, row_stride] u64 C-contiguous trace block
+    coord_off: int,
+    cells_off: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Fq2 twin of g1_exp_chain: the whole G2 double-and-add witness chain
+    in one call, the coordinates (cells [coord_off, coord_off + 128)) and
+    G2Output cells ([cells_off, cells_off + 640)) written straight into
+    `main`. Returns (final_bx, final_by) as [n, 2, 16] u64 limbs."""
+    n, rows, row_stride = main.shape
+    if not (main.flags.c_contiguous and main.dtype == np.uint64):
+        raise ValueError("g2_exp_chain: main must be a C-contiguous uint64 array")
+    if coord_off + 8 * N_LIMBS > row_stride or cells_off + 40 * N_LIMBS > row_stride:
+        raise ValueError("g2_exp_chain: cell offsets run past the row")
+    if any(v.shape != (n, 2, N_LIMBS) for v in (ax, ay, bx, by)) \
+            or bits.shape != (n, rows) or is_double.shape != (rows,):
+        raise ValueError("g2_exp_chain: input shapes disagree with main")
+    ax16, ay16, bx16, by16 = (np.ascontiguousarray(v, dtype=np.uint16) for v in (ax, ay, bx, by))
+    isd = np.ascontiguousarray(is_double, dtype=np.uint8)
+    bts = np.ascontiguousarray(bits, dtype=np.uint8)
+    fbx = np.zeros((n, 2, N_LIMBS), dtype=np.uint16)
+    fby = np.zeros((n, 2, N_LIMBS), dtype=np.uint16)
+    rc = lib().g2_exp_chain(
+        n, rows,
+        _ptr(ax16, ctypes.c_uint16), _ptr(ay16, ctypes.c_uint16),
+        _ptr(bx16, ctypes.c_uint16), _ptr(by16, ctypes.c_uint16),
+        _ptr(isd, ctypes.c_uint8), _ptr(bts, ctypes.c_uint8),
+        _ptr(main, ctypes.c_uint64),
+        row_stride, coord_off, cells_off,
+        _ptr(fbx, ctypes.c_uint16), _ptr(fby, ctypes.c_uint16),
+    )
+    if rc != 0:
+        raise ValueError(f"native g2 chain failed at (inst*rows+row)={rc - 1}")
+    return fbx.astype(np.uint64), fby.astype(np.uint64)
+
+
+def exp_chain(
+    name: str,  # "fq_exp_chain"
+    a: np.ndarray,  # [n, 16] u64 limbs
+    b: np.ndarray,
+    is_square: np.ndarray,  # [rows] bool/u8
+    bits: np.ndarray,  # [n, rows] bool/u8
+    main: np.ndarray,  # [n, rows, row_stride] u64 C-contiguous trace block
+    coord_off: int,
+    cells_off: int,
+) -> np.ndarray:
+    """Runs a whole square-and-multiply witness chain in one C++ call,
+    writing the per-row a, b (cells [coord_off, coord_off + 32)) and the
+    multiply's output cells ([cells_off, cells_off + 112)) straight into
+    `main`. Returns final_b (the proven outputs), shaped like `a`."""
+    if name != "fq_exp_chain":  # the Fq12 chain waits for the Fq12 AIRs
+        raise ValueError(f"exp_chain: unknown chain {name!r}")
+    n, rows, row_stride = main.shape
+    if not (main.flags.c_contiguous and main.dtype == np.uint64):
+        raise ValueError(f"{name}: main must be a C-contiguous uint64 array")
+    if coord_off + 2 * N_LIMBS > row_stride or cells_off + 7 * N_LIMBS > row_stride:
+        raise ValueError(f"{name}: cell offsets run past the row")
+    if a.shape != (n, N_LIMBS) or b.shape != a.shape or bits.shape != (n, rows) \
+            or is_square.shape != (rows,):
+        raise ValueError(f"{name}: input shapes disagree with main")
+    a16, b16 = (np.ascontiguousarray(v, dtype=np.uint16) for v in (a, b))
+    isq = np.ascontiguousarray(is_square, dtype=np.uint8)
+    bts = np.ascontiguousarray(bits, dtype=np.uint8)
+    fb = np.zeros_like(b16)
+    rc = getattr(lib(), name)(
+        n, rows,
+        _ptr(a16, ctypes.c_uint16), _ptr(b16, ctypes.c_uint16),
+        _ptr(isq, ctypes.c_uint8), _ptr(bts, ctypes.c_uint8),
+        _ptr(main, ctypes.c_uint64),
+        row_stride, coord_off, cells_off,
+        _ptr(fb, ctypes.c_uint16),
+    )
+    if rc != 0:
+        raise ValueError(f"native {name} failed at (inst*rows+row)={rc - 1}")
+    return fb.astype(np.uint64)
 
 
 def hist_u16_cols(view: np.ndarray, cols) -> np.ndarray:

@@ -3,6 +3,7 @@
 from .air import Air
 from .config import FriConfig, StarkConfig
 from .proof import StarkProof, load_proof, proof_from_bytes, proof_to_bytes, save_proof
+from .pipeline import prove_pipelined
 from .prover import prove
 from .verifier import VerificationError, verify
 
@@ -16,6 +17,7 @@ __all__ = [
     "proof_to_bytes",
     "proof_from_bytes",
     "prove",
+    "prove_pipelined",
     "verify",
     "VerificationError",
 ]
