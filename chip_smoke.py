@@ -18,7 +18,9 @@ lines; any failure raises and the exit code is non-zero:
    of csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
    on the card, at every path's shapes (FqMulAir's, and G1ExpAir(128)'s,
-   FqExpAir(128)'s and G2ExpAir(128)'s);
+   FqExpAir(128)'s, G2ExpAir(128)'s, Fq12ExpAir(128)'s and
+   Fq12ExpU64Air(512)'s: K2 at the leaf widths of the keccak paths, K3 at
+   those of the Poseidon paths);
    exact equality (all arithmetic is exact mod p); kernel and plain times;
    each kernel's bound, the larger of its compulsory bytes over the HBM
    rate and the integer instructions of the work its function needs over
@@ -31,9 +33,10 @@ lines; any failure raises and the exit code is non-zero:
    tests/fixtures/fq_mul_256_test_config.npz byte for byte, and
    G1ExpAir(2, logup, rlc) under test_config
    tests/fixtures/g1_exp_2_rlc_test_config.npz (both made by the JAX
-   package), and likewise FqExpAir(2, logup, rlc) and G2ExpAir(1, logup,
-   rlc) against their fixtures; the seed-7 digest and the keccak
-   test-config digest pinned by the CPU tests must match;
+   package), and likewise FqExpAir(2, logup, rlc), G2ExpAir(1, logup, rlc),
+   Fq12ExpAir(1, logup, rlc) and the two-term prove_fq12_multiexp(u64=True)
+   (Fq12ExpU64Air(2, logup, rlc)) against their fixtures; the seed-7 digest
+   and the keccak test-config digest pinned by the CPU tests must match;
 5. slice: FqMulAir(65536) (812 trace + 888 permutation columns) under
    standard_fast_config("keccak"): trace generation, a first prove through
    `prove`'s default device (the card) with every kernel's launch count
@@ -57,14 +60,37 @@ lines; any failure raises and the exit code is non-zero:
    instance-swapped proofs rejected);
 8. g2: G2ExpAir(128) (65536 x 788 trace, 770 aux columns), inputs
    g2_mul(G2_GEN, scalar) from default_rng(0): the steps of 7, peak device
-   memory and the profile of one warm prove;
+   memory, the profile of one warm prove and the composition probe (one
+   more warm prove: the row blocks, the kernel launches and the peak device
+   memory of the constraint composition, as live int64 words per committed
+   cell of a block);
 9. g1-pipelined, the bench's service tier (bench.py:196-236): four
    G1ExpAir(128) batches, each from its own seed, through prove_pipelined
    with the launch counts reset and read around it; each proof must equal
    the bytes of a sequential prove of its batch and verify; the steady and
    fill rates beside the serial num_io / (tracegen + prove) of the same
    batches;
-10. the kernel JSON line, the card's line, then the result line.
+10. fq12: the Fq12 multi-exponentiation entry point,
+   prove_fq12_multiexp(xs, exps) with 128 terms under its default config
+   (standard_fast_config(), Poseidon leaves), which proves Fq12ExpAir(128)
+   (65536 x 4412 trace, 2672 aux columns): tracegen cold and warm, the
+   entry point's call with the launch counts reset and read around it (its
+   proof must equal the warm prove's bytes), FQ12_WARM_PROVES warm proves
+   (phase table), verify_fq12_multiexp true, and false for a wrong result,
+   a tampered opening and an instance-swapped proof rejected, the rlc aux
+   phase's whole-trace copy to the host timed, peak device memory, the
+   profile of one more prove (its wall clock against the unprofiled warm
+   prove: the profiler's overhead) and the composition probe;
+11. fq12-u64: the same through prove_fq12_multiexp(u64=True) with 512
+   terms (exponents below 2^63) under standard_fast_config("keccak"), which
+   proves Fq12ExpU64Air(512) (65536 x 4402 trace, 2672 aux columns), with
+   a profile;
+12. msm: prove_g1_msm / verify_g1_msm over 128 points (the result equal to
+   the host oracle's sum) and prove_hash_to_g2 / verify_hash_to_g2 on one
+   message, each under its default config, with the launch counts reset
+   just before and read just after each of the two entry points (each
+   path's kernels checked on its own count);
+13. the kernel JSON line, the card's line, then the result line.
 """
 
 from __future__ import annotations
@@ -74,7 +100,6 @@ import os
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -83,10 +108,13 @@ G1_FIXTURE = os.path.join(HERE, "tests", "fixtures", "g1_exp_2_rlc_test_config.n
 G1_FIXTURE_SEED = 2026  # tests/test_torch_g1_e2e.py: the fixture's pinned inputs
 FQ_EXP_FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq_exp_2_rlc_test_config.npz")
 G2_FIXTURE = os.path.join(HERE, "tests", "fixtures", "g2_exp_1_rlc_test_config.npz")
+FQ12_FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq12_exp_1_rlc_test_config.npz")
+FQ12_U64_FIXTURE = os.path.join(HERE, "tests", "fixtures", "fq12_exp_u64_2_rlc_test_config.npz")
+FQ12_U64_FIXTURE_SEED = 2027  # tests/test_torch_fq12_u64_e2e.py: the fixture's pinned terms
 SEED7_DIGEST = "10cb158ab61caf68"
 KECCAK_DIGEST = "d9399851e8b42e5a"
 SLICE_ROWS = 1 << 16
-WARM_PROVES = 5  # the slice's prove_s is their median
+WARM_PROVES = 3  # the slice's prove_s is their median
 G1_NUM_IO = 128  # bench.py's default: 65536 rows
 G1_SHAPES = ((1 << 16, 404), 390)  # its trace and its aux columns, uncut
 G1_WARM_PROVES = 3  # the g1 phase's prove_s is their median
@@ -94,9 +122,19 @@ FQ_EXP_SHAPES = ((1 << 16, 164), 152)
 G2_SHAPES = ((1 << 16, 788), 770)
 EXP_WARM_PROVES = 3  # the fq and g2 phases' prove_s is their median
 PIPE_BATCHES = 4  # bench.py's n_pipe
-# K1 and K2 shapes of each exp path: its trace and aux columns (K1 inverse
-# at 65536 rows, forward LDE at 131072; K2 hashes the 131072-row leaves)
-PATH_WIDTHS = {"g1": (404, 390), "fq": (164, 152), "g2": (788, 770)}
+FQ12_NUM_IO = 128  # Fq12ExpAir(128): 128 terms x 512 rows
+FQ12_SHAPES = ((1 << 16, 4412), 2672)
+FQ12_U64_NUM_IO = 512  # Fq12ExpU64Air(512): 512 terms x 128 rows
+FQ12_U64_SHAPES = ((1 << 16, 4402), 2672)
+FQ12_WARM_PROVES = 1  # ~18-20 s each: one keeps the whole run well inside its limit
+MSM_POINTS = 128
+# K1 shapes of each exp path: its trace and aux columns (inverse at 65536
+# rows, forward LDE at 131072); its leaves (131072 rows of each width) are
+# hashed by K2 on the keccak paths and by K3 on the Poseidon path (fq12)
+PATH_WIDTHS = {"g1": (404, 390), "fq": (164, 152), "g2": (788, 770), "fq12": (4412, 2672),
+               "fq12_u64": (4402, 2672)}
+KECCAK_PATHS = ("g1", "fq", "g2", "fq12_u64")
+POSEIDON_PATHS = ("fq12",)
 NARROW_NTT_SHAPES = [(131072, 2), (131072,), (65536, 4)]  # quotient and FRI final poly
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
@@ -170,6 +208,48 @@ def g2_inputs(seed: int, count: int, bn254):
              rand_scalar()) for _ in range(count)]
 
 
+def fq12_inputs(seed: int, count: int, bn254):
+    """(x, offset, exponent) per instance: random Fq12 values and a 256-bit
+    scalar, drawn as scripts/heavy_standard_config.py:31-40 draws them (and
+    tests/test_torch_fq12_e2e.py, whose fixture pins seed 2026)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_fq12():
+        return bn254.Fq12.from_fq_list(
+            [int.from_bytes(rng.bytes(40), "little") % bn254.P_BN for _ in range(12)])
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
+
+    return [(rand_fq12(), rand_fq12(), rand_scalar()) for _ in range(count)]
+
+
+def multiexp_terms(seed: int, count: int, u64: bool, bn254):
+    """(xs, exps) of an Fq12 multi-exponentiation: random Fq12 values, and
+    256-bit scalars or (u64) exponents below 2^63 (as
+    tests/test_torch_fq12_u64_e2e.py, whose fixture pins seed 2027)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_fq12():
+        return bn254.Fq12.from_fq_list(
+            [int.from_bytes(rng.bytes(40), "little") % bn254.P_BN for _ in range(12)])
+
+    xs = [rand_fq12() for _ in range(count)]
+    if u64:
+        return xs, [int(e) for e in rng.integers(0, 1 << 63, size=count, dtype=np.uint64)]
+    return xs, [int.from_bytes(rng.bytes(40), "little") % bn254.R_BN for _ in range(count)]
+
+
+def path_kernels(cfg) -> list[str]:
+    """The kernels a prove under cfg launches: K2 hashes the Merkle leaves
+    only under the keccak config (K3 hashes them under Poseidon)."""
+    return [k for k in KERNELS if k != "keccak_sponge" or cfg.fri.merkle_hash == "keccak"]
+
+
 def swap_instances(pi, num_io: int):
     """The public inputs with the first two instances' blocks exchanged."""
     import numpy as np
@@ -205,6 +285,21 @@ def max_abs_err(a, b) -> float:
     x = xnp.to_numpy(a[neq]).astype(object)
     y = xnp.to_numpy(b[neq]).astype(object)
     return float(max(abs(x - y)))
+
+
+def timed_call(fn):
+    """(fn(), its device time in ms) from CUDA events around one call: the
+    plain versions at the widest shapes take seconds, so their check run is
+    their timed run."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check_equal(name, got, want) -> float:
@@ -322,16 +417,23 @@ def phase_build(sms: int, clock_mhz: float) -> tuple[Bounds, float]:
 
 
 def phase_kernels(dev, bounds: Bounds) -> dict:
-    import numpy as np
     import torch
 
-    from starky_bn254_tpu_torch import goldilocks as gl
-    from starky_bn254_tpu_torch import keccak, ntt, poseidon, xnp
+    from starky_bn254_tpu_torch import keccak, ntt, poseidon
 
-    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def words(shape, hi_max: int):
+        """Random u64 words made on the card (int64 bit patterns), the high
+        half below hi_max."""
+        hi = torch.randint(0, hi_max, shape, device=dev, generator=gen)
+        return (hi << 32) | torch.randint(0, 1 << 32, shape, device=dev, generator=gen)
 
     def field(*shape):
-        return xnp.to_torch(rng.integers(0, gl.P, shape, dtype=np.uint64), dev)
+        """Canonical field elements: a high half below 2^32 - 1 keeps each
+        word below 2^64 - 2^32 < p."""
+        return words(shape, (1 << 32) - 1)
 
     out = {}
 
@@ -339,26 +441,32 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
     errs = []
     # the shapes recorded in the kernel line: each exp path's trace and aux
     # transforms, and the narrow ones every path shares
-    recorded = {(n, c): path for path, widths in PATH_WIDTHS.items()
-                for c in widths for n in (65536, 131072)}
-    recorded.update({shape: "narrow" for shape in NARROW_NTT_SHAPES})
+    recorded: dict[tuple, list[str]] = {}  # shape -> the paths that take it
+    for path, widths in PATH_WIDTHS.items():
+        for c in widths:
+            for n in (65536, 131072):
+                recorded.setdefault((n, c), []).append(path)
+    for shape in NARROW_NTT_SHAPES:
+        recorded[shape] = ["narrow"]
     ntt_rows = {key: [] for key in list(PATH_WIDTHS) + ["narrow"]}
     for shape in [(65536, 812), (131072, 812), (65536, 888), (131072, 888)] + list(recorded):
         x = field(*shape)
         n, c = shape[0], (shape[1] if len(shape) > 1 else 1)
         for inverse in (False, True):
-            err = check_equal(f"ntt{shape} inverse={inverse}",
-                              ntt.ntt(x, inverse), ntt._ntt_plain(x, inverse))
+            want, plain_ms = timed_call(lambda: ntt._ntt_plain(x, inverse))
+            err = check_equal(f"ntt{shape} inverse={inverse}", ntt.ntt(x, inverse), want)
+            del want
             errs.append(err)
             before = ntt.LAUNCHES
             ms = cuda_ms(lambda: ntt.ntt(x, inverse))
             passes = (ntt.LAUNCHES - before) // 4
             r = dict(ms=ms, **bounds.ntt(n, c, inverse))
             if shape in recorded:
-                r["plain_ms"] = cuda_ms(lambda: ntt._ntt_plain(x, inverse), 1)
-                ntt_rows[recorded[shape]].append(dict(
-                    shape=list(shape), inverse=inverse, passes=passes, max_abs_err=err, ms=ms,
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
+                r["plain_ms"] = plain_ms
+                for path in recorded[shape]:
+                    ntt_rows[path].append(dict(
+                        shape=list(shape), inverse=inverse, passes=passes, max_abs_err=err, ms=ms,
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"]))
             show(f"ntt {list(shape)} {'inverse' if inverse else 'forward'} ({passes} passes), equal", r)
         del x
     wide = field(65536, 900)
@@ -370,37 +478,35 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
     del wide, view
     x = field(131072, 888)
     out["ntt"] = dict(max_abs_err=max(errs), shape=[131072, 888], ms=cuda_ms(lambda: ntt.ntt(x)),
-                      plain_ms=cuda_ms(lambda: ntt._ntt_plain(x), 1), **bounds.ntt(131072, 888, False),
+                      plain_ms=timed_call(lambda: ntt._ntt_plain(x))[1], **bounds.ntt(131072, 888, False),
                       **{f"{key}_shapes": rows for key, rows in ntt_rows.items()})
     show("ntt [131072, 888] forward", out["ntt"])
     del x
 
     # K2: Merkle leaf hashing of the trace LDE
-    leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, 812), dtype=np.uint64), dev)
-    err = check_equal("keccak hash_no_pad", keccak.hash_no_pad(leaves),
-                      keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+    leaves = words((131072, 812), 1 << 32)
+    want, plain_ms = timed_call(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+    err = check_equal("keccak hash_no_pad", keccak.hash_no_pad(leaves), want)
     out["keccak_sponge"] = dict(
         max_abs_err=err, shape=[131072, 812],
-        ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
-        plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST), 1),
+        ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), plain_ms=plain_ms,
         **bounds.keccak(131072, 812),
     )
     show("keccak hash_no_pad [131072, 812], equal", out["keccak_sponge"])
-    leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, 888), dtype=np.uint64), dev)
+    leaves = words((131072, 888), 1 << 32)
     check_equal("keccak hash_no_pad [131072, 888]", keccak.hash_no_pad(leaves),
                 keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
     show("keccak hash_no_pad [131072, 888] (the Z-column leaves), equal",
          dict(ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), **bounds.keccak(131072, 888)))
-    for path, widths in PATH_WIDTHS.items():  # each exp path's trace and aux leaves
+    for path in KECCAK_PATHS:  # each keccak exp path's trace and aux leaves
         rows = []
-        for width in widths:
-            leaves = xnp.to_torch(rng.integers(0, 1 << 64, (131072, width), dtype=np.uint64), dev)
+        for width in PATH_WIDTHS[path]:
+            leaves = words((131072, width), 1 << 32)
+            want, plain_ms = timed_call(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
             err = check_equal(f"keccak hash_no_pad [131072, {width}]", keccak.hash_no_pad(leaves),
-                              keccak._sponge_plain(None, leaves, True, keccak.DIGEST))
+                              want)
             r = dict(shape=[131072, width], max_abs_err=err,
-                     ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)),
-                     plain_ms=cuda_ms(lambda: keccak._sponge_plain(None, leaves, True, keccak.DIGEST),
-                                      1),
+                     ms=cuda_ms(lambda: keccak.hash_no_pad(leaves)), plain_ms=plain_ms,
                      **bounds.keccak(131072, width))
             show(f"keccak hash_no_pad [131072, {width}] ({path} leaves), equal", r)
             rows.append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
@@ -424,11 +530,11 @@ def phase_poseidon(dev, bounds: Bounds, field) -> dict:
     timed = {}
     for rows in (1, 27):
         blk = field(rows, 128)
+        want, plain_ms = timed_call(lambda: poseidon._sponge_plain(None, blk, 4))
         errs.append(check_equal(f"poseidon hash_no_pad [{rows}, 128]", poseidon.hash_no_pad(blk),
-                                poseidon._sponge_plain(None, blk, 4)))
+                                want))
         timed[f"digest_{rows}"] = dict(
-            ms=cuda_ms(lambda: poseidon.hash_no_pad(blk), 20),
-            plain_ms=cuda_ms(lambda: poseidon._sponge_plain(None, blk, 4), 1),
+            ms=cuda_ms(lambda: poseidon.hash_no_pad(blk), 20), plain_ms=plain_ms,
             form=poseidon._sponge_form(rows), **bounds.poseidon(rows, 16, 128, 4))
         show(f"poseidon digest [{rows}, 128] ({poseidon._sponge_form(rows)} layout), equal",
              timed[f"digest_{rows}"])
@@ -439,28 +545,53 @@ def phase_poseidon(dev, bounds: Bounds, field) -> dict:
                                form=poseidon._sponge_form(1), **bounds.poseidon(1, 1, 8, 4))
     show("poseidon compress [1, 4] + [1, 4], equal", timed["compress_1"])
     state, block = field(131072, 12), field(131072, 64)
-    errs.append(check_equal("poseidon sponge_absorb", poseidon.sponge_absorb(state, block),
-                            poseidon._sponge_plain(state, block, poseidon.WIDTH)))
+    want, plain_ms = timed_call(lambda: poseidon._sponge_plain(state, block, poseidon.WIDTH))
+    errs.append(check_equal("poseidon sponge_absorb", poseidon.sponge_absorb(state, block), want))
     timed["sponge_131072x64"] = dict(
-        ms=cuda_ms(lambda: poseidon.sponge_absorb(state, block)),
-        plain_ms=cuda_ms(lambda: poseidon._sponge_plain(state, block, poseidon.WIDTH), 1),
+        ms=cuda_ms(lambda: poseidon.sponge_absorb(state, block)), plain_ms=plain_ms,
         form=poseidon._sponge_form(131072), **bounds.poseidon(131072, 8, 64 + 12, 12))
     show(f"poseidon sponge_absorb [131072, 64] ({poseidon._sponge_form(131072)} layout), equal",
          timed["sponge_131072x64"])
     del state, block
     # the G1 trace leaves under the Poseidon Merkle hash (row layout)
     leaves = field(131072, 404)
-    err = check_equal("poseidon hash_no_pad [131072, 404]", poseidon.hash_no_pad(leaves),
-                      poseidon._sponge_plain(None, leaves, 4))
+    want, plain_ms = timed_call(lambda: poseidon._sponge_plain(None, leaves, 4))
+    err = check_equal("poseidon hash_no_pad [131072, 404]", poseidon.hash_no_pad(leaves), want)
     errs.append(err)
     g1_leaves = dict(shape=[131072, 404], max_abs_err=err,
-                     ms=cuda_ms(lambda: poseidon.hash_no_pad(leaves)),
-                     plain_ms=cuda_ms(lambda: poseidon._sponge_plain(None, leaves, 4), 1),
+                     ms=cuda_ms(lambda: poseidon.hash_no_pad(leaves)), plain_ms=plain_ms,
                      form=poseidon._sponge_form(131072),
                      **bounds.poseidon(131072, -(-404 // poseidon.RATE), 404, 4))
     show(f"poseidon hash_no_pad [131072, 404] ({g1_leaves['form']} layout, G1 leaves), equal",
          g1_leaves)
     del leaves
+    path_leaves = {}
+    for path in POSEIDON_PATHS:  # each Poseidon path's trace and aux leaves
+        # one plain pass over the widest block serves every width: the sponge
+        # state after the first w columns (w a multiple of the rate) is the
+        # plain hash of those columns, and the pass goes on from it
+        rows, state, absorbed, plain_ms = [], None, 0, 0.0
+        leaves = field(131072, max(PATH_WIDTHS[path]))
+        for width in sorted(PATH_WIDTHS[path]):
+            if absorbed % poseidon.RATE:
+                raise AssertionError("a plain pass can only go on from a whole chunk")
+            state, ms = timed_call(lambda: poseidon._sponge_plain(state, leaves[:, absorbed:width],
+                                                             poseidon.WIDTH))
+            plain_ms, absorbed = plain_ms + ms, width
+            block = leaves[:, :width].contiguous()
+            err = check_equal(f"poseidon hash_no_pad [131072, {width}]", poseidon.hash_no_pad(block),
+                              state[:, :4])
+            errs.append(err)
+            r = dict(shape=[131072, width], max_abs_err=err,
+                     ms=cuda_ms(lambda: poseidon.hash_no_pad(block)),
+                     plain_ms=plain_ms, form=poseidon._sponge_form(131072),
+                     **bounds.poseidon(131072, -(-width // poseidon.RATE), width, 4))
+            show(f"poseidon hash_no_pad [131072, {width}] ({r['form']} layout, {path} leaves), equal",
+                 r)
+            rows.append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
+            del block
+        path_leaves[f"{path}_shapes"] = rows
+        del leaves, state
     bits = 16
     batch, threshold = 1 << (bits + 2), 1 << (64 - bits)
     for seed in (0x1234_5678_9ABC, 0x0F0F_F0F0_1234_5678):
@@ -512,7 +643,8 @@ def phase_poseidon(dev, bounds: Bounds, field) -> dict:
     return dict(max_abs_err=max(errs), shape=[batch, 12], **grind,
                 **{f"{k}_{f}": v[f] for k, v in timed.items() for f in ("ms", "bound_ms")},
                 sweep={str(r): v for r, v in sweep.items()},
-                g1_shapes=[{k: v for k, v in g1_leaves.items() if k not in ("bytes", "int_ops")}])
+                g1_shapes=[{k: v for k, v in g1_leaves.items() if k not in ("bytes", "int_ops")}],
+                **path_leaves)
 
 
 def phase_fidelity(dev):
@@ -578,6 +710,29 @@ def phase_fidelity(dev):
             raise AssertionError(f"{name} test_config proof differs from the fixture")
         print(f"fidelity: {name} test_config proof == fixture ({len(got)} bytes)")
 
+    from starky_bn254_tpu_torch.airs.fq12_exp import Fq12ExpAir
+    from starky_bn254_tpu_torch.compose import prove_fq12_multiexp
+
+    air = Fq12ExpAir(1, range_check="logup", io_binding="rlc")
+    trace, pi = air.generate_trace_and_pi(fq12_inputs(G1_FIXTURE_SEED, 1, bn254))
+    with np.load(FQ12_FIXTURE) as f:
+        want_pi, want = f["public_inputs"], f["proof_bytes"].tobytes()
+    if not np.array_equal(pi, want_pi):
+        raise AssertionError("Fq12ExpAir(1): public inputs differ from the fixture's")
+    got = proof_to_bytes(prove(air, trace, pi, cfg, device=dev))
+    if got != want:
+        raise AssertionError("Fq12ExpAir(1, logup, rlc) test_config proof differs from the fixture")
+    print(f"fidelity: Fq12ExpAir(1, logup, rlc) test_config proof == fixture ({len(got)} bytes)")
+    xs, exps = multiexp_terms(FQ12_U64_FIXTURE_SEED, 2, True, bn254)
+    proof = prove_fq12_multiexp(xs, exps, u64=True, cfg=cfg, io_binding="rlc")[0]  # the card
+    with np.load(FQ12_U64_FIXTURE) as f:
+        want = f["proof_bytes"].tobytes()
+    got = proof_to_bytes(proof)
+    if got != want:
+        raise AssertionError("prove_fq12_multiexp(u64=True) test_config proof differs from the fixture")
+    print(f"fidelity: prove_fq12_multiexp(2 terms, u64=True): Fq12ExpU64Air(2, logup, rlc) "
+          f"test_config proof == fixture ({len(got)} bytes)")
+
 
 def _phase_ms(tt) -> dict[str, float]:
     """The TimingTree's scopes as {"a/b": ms}."""
@@ -594,10 +749,29 @@ def _phase_ms(tt) -> dict[str, float]:
     return flat
 
 
+def _kernels_by_name(prof) -> dict[str, list[float]]:
+    """The device kernels of a finished torch.profiler run: {name: [ms]},
+    read from the profiler's events (the card's activities but copies and
+    memsets), not from an exported trace: a million-launch prove's trace
+    file takes a minute to write and parse."""
+    import torch
+
+    by_name: dict[str, list[float]] = {}
+    for e in prof.profiler.kineto_results.events():
+        raw = e.name()
+        if e.device_type() != torch.autograd.DeviceType.CUDA or raw.startswith(("Memcpy", "Memset")):
+            continue
+        name = raw.split("(")[0].split("<")[0].replace("void ", "").strip()
+        by_name.setdefault(name, []).append(e.duration_ns() / 1e6)
+    return by_name
+
+
 def profile_prove(label: str, run) -> dict:
     """torch.profiler over one warm prove: kernel launches, kernel time and
     the device busy share (kernel time over the host wall clock of the
-    prove), kernel time by name."""
+    prove), kernel time by name. Where the trace holds fewer launches of a
+    hand kernel than its wrapper counted, the profiler dropped events and
+    the launches and busy share are printed as lower bounds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -605,29 +779,18 @@ def profile_prove(label: str, run) -> dict:
 
     modules = {"ntt": ntt, "keccak": keccak, "poseidon": poseidon}
     before = {k: m.LAUNCHES for k, m in modules.items()}
-    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    by_name: dict[str, list[float]] = {}
-    for e in events:
-        if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
-            name = e["name"].split("(")[0].split("<")[0].replace("void ", "").strip()
-            by_name.setdefault(name, []).append(e.get("dur", 0.0) / 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name = _kernels_by_name(prof)
     total_ms = sum(sum(v) for v in by_name.values())
     launches = sum(len(v) for v in by_name.values())
     if launches == 0:
         raise AssertionError("the profiler saw no kernel on the card during a prove")
     busy = 100 * total_ms / (wall_s * 1e3)
-    print(f"{label}: profiled warm prove: {launches} kernel launches, {total_ms:.1f} ms of kernel "
-          f"time in {wall_s * 1e3:.1f} ms of wall clock: device busy {busy:.1f} %")
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, durs in ranked[:12]:
         print(f"{label}: kernel {name}: {sum(durs):.2f} ms in {len(durs)} launches")
@@ -639,16 +802,30 @@ def profile_prove(label: str, run) -> dict:
         hand[kernel] = dict(ms=ms, launches=count, counted=counted)
         print(f"{label}: {kernel} kernels: {ms:.3f} ms in {count} launches in the trace "
               f"({counted} by the wrapper's count)")
+    dropped = sum(h["counted"] - h["launches"] for h in hand.values())
+    # the profiler drops events when a prove launches about a million
+    # kernels: every count and the busy share below are then lower bounds
+    print(f"{label}: profiled warm prove: {'at least ' if dropped else ''}{launches} kernel "
+          f"launches, {total_ms:.1f} ms of kernel time in {wall_s * 1e3:.1f} ms of wall clock: "
+          f"device busy {'>= ' if dropped else ''}{busy:.1f} %"
+          f"{f' (a lower bound: the trace lacks {dropped} launches the wrappers counted)' if dropped else ''}")
     return dict(kernel_launches=launches, kernel_ms=total_ms, wall_ms=wall_s * 1e3, busy_pct=busy,
-                hand_kernels=hand)
+                hand_kernels=hand, dropped=dropped)
 
 
-def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
+def drive(label: str, air, trace, pi, cfg, warm: int, first=None, check=None,
+          profile: bool = False) -> dict:
     """A path through the user's entry points on the card: a first prove
     through `prove`'s default device with every kernel's launch count reset
     just before and read just after (each must be > 0), `warm` timed warm
     proves (median and phase table), verify, and a tampered opening
-    rejected. trace: an int64 tensor on the card."""
+    rejected. trace: an int64 tensor on the card. first: the entry point to
+    count instead of `prove(air, trace, pi, cfg)`, a callable returning the
+    proof (its time is then `first_s`, not `prove_first_s`). check: the
+    entry point's verify to take instead of `verify(air, proof, cfg)`.
+    profile: after the timed warm proves, profile one more prove
+    (profile_prove) and print its wall clock against the unprofiled
+    median: the profiler's overhead."""
     import numpy as np
     import torch
 
@@ -663,15 +840,15 @@ def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
     for m in modules.values():
         m.LAUNCHES = 0
     t0 = time.perf_counter()
-    prove(air, trace, pi, cfg)  # no device named: the card
+    first_proof = (first or (lambda: prove(air, trace, pi, cfg)))()  # no device named: the card
     torch.cuda.synchronize()
     prove_first_s = time.perf_counter() - t0
     launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in path_kernels(cfg) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
 
-    times, phases = [], []
+    times, phases, stats = [], [], None
     for _ in range(warm):
         tt = TimingTree("prove", dev)
         t0 = time.perf_counter()
@@ -679,8 +856,14 @@ def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         phases.append(_phase_ms(tt))
+    if profile:  # one more prove, profiled: its wall clock against the unprofiled median
+        stats = profile_prove(label, lambda: prove(air, trace, pi, cfg))
+        stats["overhead_pct"] = 100 * (stats["wall_ms"] / 1e3 / statistics.median(times) - 1)
+        print(f"{label}: the profiled prove took {stats['wall_ms'] / 1e3:.3f} s against the "
+              f"unprofiled median {statistics.median(times):.3f} s: profiler overhead "
+              f"{stats['overhead_pct']:.1f} %")
     t0 = time.perf_counter()
-    ok = verify(air, proof, cfg)
+    ok = (check or (lambda p: verify(air, p, cfg)))(proof)
     verify_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
@@ -705,11 +888,14 @@ def drive(label: str, air, trace, pi, cfg, warm: int) -> dict:
     size = len(proof_to_bytes(proof))
     q = statistics.quantiles(times, n=4) if len(times) > 1 else times * 3
     print(f"{label}: prove_s median {statistics.median(times):.3f} (quartiles {q[0]:.3f} / {q[1]:.3f} / "
-          f"{q[2]:.3f}; {warm} warm proves) prove_first_s {prove_first_s:.3f} verify_s {verify_s:.3f} "
-          f"proof_bytes {size} peak_device_GiB {peak_gib:.2f}")
-    print(f"{label}: launches in the first prove {json.dumps(launches)}")
-    return dict(launches=launches, proof=proof, prove_s=statistics.median(times), phases=medians,
-                verify_s=verify_s, peak_gib=peak_gib)
+          f"{q[2]:.3f}; {warm} warm proves) {'first_s' if first else 'prove_first_s'} "
+          f"{prove_first_s:.3f} verify_s {verify_s:.3f} proof_bytes {size} "
+          f"peak_device_GiB {peak_gib:.2f}")
+    print(f"{label}: launches in the {'entry point' if first else 'first prove'} "
+          f"{json.dumps(launches)}")
+    return dict(launches=launches, proof=proof, first_proof=first_proof,
+                prove_s=statistics.median(times), phases=medians, verify_s=verify_s,
+                peak_gib=peak_gib, profile=stats)
 
 
 def phase_slice(dev) -> dict:
@@ -733,17 +919,17 @@ def phase_slice(dev) -> dict:
     return r["launches"]
 
 
-def exp_statement(label: str, air, inputs, shapes, dev, note: str = ""):
+def exp_statement(label: str, air, inputs, shapes, dev, note: str = "", warm: bool = True):
     """Tracegen of an exp AIR's statement, cold (the chain's first use in
-    this process) and warm; its trace on the card, its shapes checked
-    against `shapes` ((rows, columns), aux columns). Returns (trace, pi,
-    aux columns)."""
+    this process) and (warm) again; its trace on the card, its shapes
+    checked against `shapes` ((rows, columns), aux columns). Returns
+    (trace, pi, aux columns)."""
     from starky_bn254_tpu_torch import xnp
     from starky_bn254_tpu_torch.stark import StarkConfig, logup
 
     nc = StarkConfig.standard_fast_config("keccak").num_challenges
     gen_s = []
-    for _ in range(2):
+    for _ in range(2 if warm else 1):
         t0 = time.perf_counter()
         trace_np, pi = air.generate_trace_and_pi(inputs)
         gen_s.append(time.perf_counter() - t0)
@@ -752,25 +938,32 @@ def exp_statement(label: str, air, inputs, shapes, dev, note: str = ""):
     aux_w = nc * (logup.table_aux_width(air.lookup_tables()) + air.aux_extra_width())
     print(f"{label}: {type(air).__name__}({air.num_io}) {air.range_check} range check, "
           f"{air.io_binding} IO binding: trace {tuple(trace.shape)}, {aux_w} aux columns; "
-          f"{note + ', ' if note else ''}tracegen_s cold {gen_s[0]:.3f} warm {gen_s[1]:.3f}",
+          f"{note + ', ' if note else ''}tracegen_s cold {gen_s[0]:.3f}"
+          f"{f' warm {gen_s[1]:.3f}' if warm else ''}",
           flush=True)
     if (tuple(trace.shape), aux_w) != shapes:
         raise AssertionError(f"{label}: unexpected shapes {tuple(trace.shape)}, {aux_w} aux columns")
     return trace, pi, aux_w
 
 
-def reject_swapped(label: str, air, trace, pi, cfg) -> None:
+def reject_swapped(label: str, air, trace, pi, cfg, probe: bool = False) -> dict | None:
     """The proof of the trace under the public inputs with the first two
-    instances exchanged must be rejected (the RLC IO binding)."""
+    instances exchanged must be rejected (the RLC IO binding). probe: run
+    that prove (the same work as a warm prove of the statement) under the
+    composition probe and return its measures."""
     from starky_bn254_tpu_torch.stark import VerificationError, prove, verify
 
-    swapped = prove(air, trace, swap_instances(pi, air.num_io), cfg)
+    def run():
+        return prove(air, trace, swap_instances(pi, air.num_io), cfg)
+
+    swapped, seen = composition_probe(label, run) if probe else (run(), None)
     try:
         verify(air, swapped, cfg)
     except VerificationError as e:
         print(f"{label}: proof of two swapped instances rejected ({e})")
     else:
         raise AssertionError(f"{label}: the proof of two swapped instances was accepted")
+    return seen
 
 
 def phase_g1(dev, native_build_s: float) -> dict:
@@ -825,6 +1018,53 @@ def phase_g1(dev, native_build_s: float) -> dict:
     return r
 
 
+def composition_probe(label: str, run) -> tuple:
+    """run(), a warm prove, with its constraint composition watched: the row
+    blocks (composition.pick_block_rows), the kernel launches (torch.profiler
+    over the composition alone) and the peak device memory above what was
+    allocated when it began, as live int64 words per committed cell of a
+    block (the measure composition._TEMPS_PER_CELL is set from). Returns
+    (run's result, the measures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from starky_bn254_tpu_torch.stark import composition, prover
+
+    seen = {}
+    plain = prover.evaluate_composition
+
+    def watched(air_, trace_lde, z_lde, *args, **kwargs):
+        n_lde, dev = trace_lde.shape[0], trace_lde.device
+        width = air_.num_columns + (z_lde.shape[1] if z_lde is not None else 0)
+        block = kwargs.get("block_rows") or composition.pick_block_rows(n_lde, width, dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = plain(air_, trace_lde, z_lde, *args, **kwargs)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        seen.update(n_lde=n_lde, width=width, block_rows=block, blocks=-(-n_lde // block),
+                    peak_gib=peak / 2**30, wall_ms=wall_ms, words_per_cell=peak / (8 * block * width),
+                    prof=prof)
+        return out
+
+    prover.evaluate_composition = watched
+    try:
+        result = run()
+    finally:
+        prover.evaluate_composition = plain
+    seen["launches"] = sum(len(v) for v in _kernels_by_name(seen.pop("prof")).values())
+    print(f"{label}: composition probe: {seen['blocks']} row blocks of {seen['block_rows']} over "
+          f"{seen['n_lde']} LDE rows x {seen['width']} committed columns "
+          f"(_TEMPS_PER_CELL = {composition._TEMPS_PER_CELL}), {seen['launches']} kernel launches, "
+          f"{seen['wall_ms']:.1f} ms under the profiler, peak {seen['peak_gib']:.2f} GiB above its "
+          f"start = {seen['words_per_cell']:.2f} live int64 words per committed cell of a block")
+    return result, seen
+
+
 def phase_exp(label: str, air, inputs, shapes, dev, profile: bool) -> dict:
     """A further exp statement through the user's entry points under the
     bench's config: the steps of phase_g1 but the logUp and Poseidon
@@ -837,10 +1077,158 @@ def phase_exp(label: str, air, inputs, shapes, dev, profile: bool) -> dict:
     for sub in ("logup", "rlc aux"):
         if f"aux (Z/logup) commit/column build/{sub}" not in r["phases"]:
             raise AssertionError(f"{label}: no {sub!r} phase in the prove's timing tree")
-    reject_swapped(label, air, trace, pi, cfg)
+    r["composition"] = reject_swapped(label, air, trace, pi, cfg, probe=profile)
     if profile:
         r["profile"] = profile_prove(label, lambda: prove(air, trace, pi, cfg))
     return r
+
+
+def phase_fq12(label: str, u64: bool, dev) -> dict:
+    """The Fq12 multi-exponentiation entry point (compose/msm.py) at full
+    width: prove_fq12_multiexp with FQ12_NUM_IO 256-bit terms under its
+    default config, or (u64) FQ12_U64_NUM_IO u64 terms under the keccak
+    config; the steps of phase_exp with the entry point as the counted
+    run and verify_fq12_multiexp as the check, the time of the rlc aux
+    phase's whole-trace copy to the host, and (fq12) the composition
+    probe."""
+    import torch
+
+    from starky_bn254_tpu_torch import bn254
+    from starky_bn254_tpu_torch.airs import Fq12ExpAir, Fq12ExpU64Air
+    from starky_bn254_tpu_torch.compose import (Fq12MultiExp, pad_instances, prove_fq12_multiexp,
+                                                verify_fq12_multiexp)
+    from starky_bn254_tpu_torch.stark import StarkConfig, proof_to_bytes
+
+    num_io = FQ12_U64_NUM_IO if u64 else FQ12_NUM_IO
+    xs, exps = multiexp_terms(0, num_io, u64, bn254)  # default_rng(0)
+    cfg_arg = StarkConfig.standard_fast_config("keccak") if u64 else None  # None: the default
+    cfg = cfg_arg or StarkConfig.standard_fast_config()
+    t0 = time.perf_counter()
+    inputs, result = Fq12MultiExp(u64=u64).build_inputs(xs, exps)
+    oracle_s = time.perf_counter() - t0
+    # the AIR the entry point builds: "auto" binds the IO by RLC from 128 instances on
+    air_cls = Fq12ExpU64Air if u64 else Fq12ExpAir
+    air = air_cls(num_io, range_check="logup", io_binding="auto")
+    trace, pi, _ = exp_statement(label, air, pad_instances(inputs),
+                                 FQ12_U64_SHAPES if u64 else FQ12_SHAPES, dev,
+                                 f"host oracle of the chain {oracle_s:.3f} s", warm=False)
+    run = {}
+
+    def entry():  # the warm tracegen is the one inside the entry point, timed here
+        plain_gen = air_cls.generate_trace_and_pi
+
+        def timed_gen(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = plain_gen(*args, **kwargs)
+            run["tracegen_s"] = time.perf_counter() - t0
+            return out
+
+        air_cls.generate_trace_and_pi = timed_gen
+        try:
+            run["out"] = prove_fq12_multiexp(xs, exps, u64=u64, cfg=cfg_arg)
+        finally:
+            air_cls.generate_trace_and_pi = plain_gen
+        return run["out"][0]
+
+    def check(p):  # the entry point's verify, of the warm proof (the same statement)
+        return verify_fq12_multiexp(p, result, air, num_io, u64=u64, cfg=cfg_arg)
+
+    r = drive(label, air, trace, pi, cfg, FQ12_WARM_PROVES, first=entry, check=check, profile=True)
+    print(f"{label}: tracegen_s warm {run['tracegen_s']:.3f} (in the entry point)")
+    proof, res, run_air, n_real = run["out"]
+    if (type(run_air), run_air.num_io, n_real) != (type(air), num_io, num_io) \
+            or res.coeffs != result.coeffs \
+            or proof_to_bytes(proof) != proof_to_bytes(r["proof"]):
+        raise AssertionError(f"{label}: the entry point proved another statement")
+    if verify_fq12_multiexp(proof, res * xs[0], run_air, n_real, u64=u64, cfg=cfg_arg):
+        raise AssertionError(f"{label}: verify_fq12_multiexp accepted a wrong result")
+    print(f"{label}: verify_fq12_multiexp accepts the proof (verify_s above), the entry point's "
+          f"proof equals the warm prove's bytes, and a wrong result is refused")
+    for sub in ("logup", "rlc aux"):
+        if f"aux (Z/logup) commit/column build/{sub}" not in r["phases"]:
+            raise AssertionError(f"{label}: no {sub!r} phase in the prove's timing tree")
+    if not u64:  # the u64 AIR's eval is the same multiply and chain
+        r["composition"] = reject_swapped(label, air, trace, pi, cfg, probe=True)
+    else:
+        reject_swapped(label, air, trace, pi, cfg)
+    # the rlc aux phase's host copy: prove hands the whole trace to
+    # Air.generate_aux, which reads 2 * num_io of its rows
+    from starky_bn254_tpu_torch import xnp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xnp.to_numpy(trace)
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    rlc_ms = r["phases"]["aux (Z/logup) commit/column build/rlc aux"]
+    print(f"{label}: rlc aux: the whole-trace copy to the host ({trace.numel() * 8 / 1e9:.2f} GB) "
+          f"{copy_ms:.1f} ms of the phase's {rlc_ms:.1f} ms")
+    r["rlc_copy_ms"] = copy_ms
+    return r
+
+
+def phase_msm(dev) -> dict:
+    """The remaining entry points of compose/msm.py on the card, each under
+    its default config: a G1 MSM over MSM_POINTS points, its result held
+    against the host oracle's sum, and hash-to-G2 on one message."""
+    import numpy as np
+
+    from starky_bn254_tpu_torch import bn254, keccak, ntt, poseidon
+    from starky_bn254_tpu_torch.compose import (prove_g1_msm, prove_hash_to_g2, verify_g1_msm,
+                                                verify_hash_to_g2)
+    from starky_bn254_tpu_torch.stark import StarkConfig
+
+    rng = np.random.default_rng(0)
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % bn254.R_BN
+
+    points = [bn254.g1_mul(bn254.G1_GEN, rand_scalar()) for _ in range(MSM_POINTS)]
+    scalars = [rand_scalar() for _ in range(MSM_POINTS)]
+    want = None
+    for p, k in zip(points, scalars):
+        want = bn254.g1_add(want, bn254.g1_mul(p, k))
+    modules = {"ntt": ntt, "keccak": keccak, "poseidon": poseidon}
+
+    def counted(label: str, cfg, run):
+        """run() with every launch count reset just before and read just
+        after; each kernel of a prove under cfg must have launched."""
+        for m in modules.values():
+            m.LAUNCHES = 0
+        out = run()
+        launches = {name: modules[attr].LAUNCHES for name, (attr, _, _) in KERNELS.items()}
+        missing = [k for k in path_kernels(cfg) if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"msm: kernels not launched in {label}: {missing}")
+        print(f"msm: launches in {label} {json.dumps(launches)}")
+        return out, launches
+
+    cfg = StarkConfig.standard_fast_config()  # both entry points' default
+    t0 = time.perf_counter()
+    (proof, result, air, n_real), g1_launches = counted(
+        "prove_g1_msm", cfg, lambda: prove_g1_msm(points, scalars))  # the card
+    prove_s = time.perf_counter() - t0
+    if result != want:
+        raise AssertionError("msm: prove_g1_msm's result differs from the host oracle's sum")
+    t0 = time.perf_counter()
+    if verify_g1_msm(proof, result, air, n_real) is not True:
+        raise AssertionError("msm: verify_g1_msm did not accept")
+    verify_s = time.perf_counter() - t0
+    if verify_g1_msm(proof, bn254.g1_double(result), air, n_real):
+        raise AssertionError("msm: verify_g1_msm accepted a wrong result")
+    print(f"msm: prove_g1_msm({MSM_POINTS} points) -> {type(air).__name__}({air.num_io}, "
+          f"{air.range_check}, {air.io_binding}) {prove_s:.3f} s (oracle, tracegen and prove); "
+          f"result equals the host oracle's sum; verify_g1_msm accepts ({verify_s:.3f} s) and "
+          f"refuses a wrong result")
+    msg = b"chip_smoke hash-to-G2"
+    t0 = time.perf_counter()
+    (proof, p_twist, result, air), h2g2_launches = counted(
+        "prove_hash_to_g2", cfg, lambda: prove_hash_to_g2(msg))
+    prove_s = time.perf_counter() - t0
+    if not bn254.g2_is_on_curve(p_twist) or verify_hash_to_g2(msg, proof, result, air) is not True:
+        raise AssertionError("msm: verify_hash_to_g2 did not accept")
+    print(f"msm: prove_hash_to_g2 -> G2ExpAir(1, {air.range_check}, {air.io_binding}) {prove_s:.3f} s; "
+          f"verify_hash_to_g2 accepts")
+    return dict(g1_launches=g1_launches, h2g2_launches=h2g2_launches)
 
 
 def phase_pipelined(dev) -> dict:
@@ -925,18 +1313,27 @@ def phase_pipelined(dev) -> dict:
 
 def main() -> int:
     start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     smi, sms, clock = phase_device()
     import torch
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     bounds, native_build_s = phase_build(sms, clock)
+    done("build")
     kernel_stats = phase_kernels(dev, bounds)
+    done("kernels")
     phase_fidelity(dev)
+    done("fidelity")
     slice_launches = phase_slice(dev)
     torch.cuda.empty_cache()
+    done("slice")
     g1 = phase_g1(dev, native_build_s)
     torch.cuda.empty_cache()
+    done("g1")
 
     from starky_bn254_tpu_torch import bn254
     from starky_bn254_tpu_torch.airs.fq_exp import FqExpAir
@@ -945,10 +1342,21 @@ def main() -> int:
     fq = phase_exp("fq", FqExpAir(G1_NUM_IO), fq_exp_inputs(0, G1_NUM_IO, bn254), FQ_EXP_SHAPES,
                    dev, profile=False)
     torch.cuda.empty_cache()
+    done("fq")
     g2 = phase_exp("g2", G2ExpAir(G1_NUM_IO), g2_inputs(0, G1_NUM_IO, bn254), G2_SHAPES, dev,
                    profile=True)
     torch.cuda.empty_cache()
+    done("g2")
     pipelined = phase_pipelined(dev)
+    torch.cuda.empty_cache()
+    done("g1-pipelined")
+    fq12 = phase_fq12("fq12", False, dev)
+    torch.cuda.empty_cache()
+    done("fq12")
+    fq12_u64 = phase_fq12("fq12-u64", True, dev)
+    torch.cuda.empty_cache()
+    done("fq12-u64")
+    msm_run = phase_msm(dev)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = kernel_stats[name]
@@ -956,6 +1364,10 @@ def main() -> int:
                    launches=g1["launches"][name], launches_fq_mul=slice_launches[name],
                    launches_fq_exp=fq["launches"][name], launches_g2_exp=g2["launches"][name],
                    launches_g1_pipelined=pipelined["launches"][name],
+                   launches_fq12_exp=fq12["launches"][name],
+                   launches_fq12_exp_u64=fq12_u64["launches"][name],
+                   launches_g1_msm=msm_run["g1_launches"][name],
+                   launches_hash_to_g2=msm_run["h2g2_launches"][name],
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=None, shape=r["shape"])

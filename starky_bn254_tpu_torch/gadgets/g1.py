@@ -23,6 +23,8 @@ time; the trace generator runs the native chain (native.g1_exp_chain).
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import bn254
 from ..stark.consumer import ConstraintConsumer
 from ..stark.field_expr import Val
@@ -36,6 +38,9 @@ P = bn254.P_BN
 
 
 def _pol_mul_limbs(a: list[int], b: list[int]) -> list[int]:
+    if max(map(abs, a)) * max(map(abs, b)) * min(len(a), len(b)) < 1 << 63:
+        # every coefficient fits an int64: one numpy convolution, exact
+        return np.convolve(np.asarray(a, np.int64), np.asarray(b, np.int64)).tolist()
     out = [0] * (len(a) + len(b) - 1)
     for i, ai in enumerate(a):
         for j, bj in enumerate(b):
@@ -44,17 +49,13 @@ def _pol_mul_limbs(a: list[int], b: list[int]) -> list[int]:
 
 
 def _sub(a: list[int], b: list[int]) -> list[int]:
-    n = max(len(a), len(b))
-    return [
-        (a[i] if i < len(a) else 0) - (b[i] if i < len(b) else 0) for i in range(n)
-    ]
+    n = min(len(a), len(b))
+    return [x - y for x, y in zip(a, b)] + list(a[n:]) + [-y for y in b[n:]]
 
 
 def _add(a: list[int], b: list[int]) -> list[int]:
-    n = max(len(a), len(b))
-    return [
-        (a[i] if i < len(a) else 0) + (b[i] if i < len(b) else 0) for i in range(n)
-    ]
+    n = min(len(a), len(b))
+    return [x + y for x, y in zip(a, b)] + list(a[n:]) + list(b[n:])
 
 
 def _wide(a: list[int]) -> list[int]:

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "g1_exp_chain": _POINT_CHAIN,
     "g2_exp_chain": _POINT_CHAIN,
     "fq_exp_chain": _FIELD_CHAIN,
+    "fq12_exp_chain": _FIELD_CHAIN,
     "hist_u16_cols": (_U64P, _I64, _I64, _I64P, _I64, _I64P),
 }
 
@@ -231,9 +232,17 @@ def g2_exp_chain(
     return fbx.astype(np.uint64), fby.astype(np.uint64)
 
 
+# per chain: the shape of one value's limbs and the cells of one row's
+# multiply output block (FqOutput 7*16, Fq12Output 84*16)
+_FIELD_CHAINS = {
+    "fq_exp_chain": ((N_LIMBS,), 7 * N_LIMBS),
+    "fq12_exp_chain": ((12, N_LIMBS), 84 * N_LIMBS),
+}
+
+
 def exp_chain(
-    name: str,  # "fq_exp_chain"
-    a: np.ndarray,  # [n, 16] u64 limbs
+    name: str,  # "fq_exp_chain" | "fq12_exp_chain"
+    a: np.ndarray,  # [n, 16] (fq) or [n, 12, 16] (fq12) u64 limbs
     b: np.ndarray,
     is_square: np.ndarray,  # [rows] bool/u8
     bits: np.ndarray,  # [n, rows] bool/u8
@@ -241,18 +250,23 @@ def exp_chain(
     coord_off: int,
     cells_off: int,
 ) -> np.ndarray:
-    """Runs a whole square-and-multiply witness chain in one C++ call,
-    writing the per-row a, b (cells [coord_off, coord_off + 32)) and the
-    multiply's output cells ([cells_off, cells_off + 112)) straight into
-    `main`. Returns final_b (the proven outputs), shaped like `a`."""
-    if name != "fq_exp_chain":  # the Fq12 chain waits for the Fq12 AIRs
+    """Runs a whole square-and-multiply witness chain (Fq or Fq12) in one
+    C++ call. Row r of every instance squares `a` where is_square[r] is
+    set; elsewhere an instance whose bit is set does b = a * b and the
+    others write the zero output block. The per-row a, b (cells
+    [coord_off, coord_off + 2 * value cells)) and the multiply's output
+    cells ([cells_off, cells_off + output cells)) go straight into `main`.
+    Returns final_b (the proven outputs), shaped like `a`."""
+    if name not in _FIELD_CHAINS:
         raise ValueError(f"exp_chain: unknown chain {name!r}")
+    value_shape, out_cells = _FIELD_CHAINS[name]
+    value_cells = int(np.prod(value_shape))
     n, rows, row_stride = main.shape
     if not (main.flags.c_contiguous and main.dtype == np.uint64):
         raise ValueError(f"{name}: main must be a C-contiguous uint64 array")
-    if coord_off + 2 * N_LIMBS > row_stride or cells_off + 7 * N_LIMBS > row_stride:
+    if coord_off + 2 * value_cells > row_stride or cells_off + out_cells > row_stride:
         raise ValueError(f"{name}: cell offsets run past the row")
-    if a.shape != (n, N_LIMBS) or b.shape != a.shape or bits.shape != (n, rows) \
+    if a.shape != (n, *value_shape) or b.shape != a.shape or bits.shape != (n, rows) \
             or is_square.shape != (rows,):
         raise ValueError(f"{name}: input shapes disagree with main")
     a16, b16 = (np.ascontiguousarray(v, dtype=np.uint16) for v in (a, b))

@@ -178,9 +178,14 @@ def _mds_layer(state):
     if not _small_mds():
         mds = _constants()[1] if host else _table("mds", state.device)
         return gl.sum_mod(gl.mul(state[..., None, :], mds), axis=-1)
-    diag = np.array(MDS_DIAG, dtype=np.uint64) if host else _table("diag", state.device)
+    diag = None if host else _table("diag", state.device)
 
     def circ(x):
+        if host:
+            # one float64 matrix product: every term (< 2^48) and partial
+            # sum (< 2^53) is an integer that float64 holds exactly, in any
+            # order of summation
+            return _host_circ(x)
         # out[i] = sum_d row[d] * x[(i + d) % 12], over views of [x | x]
         xx = xnp.concatenate([x, x], axis=-1)
         acc = x * diag
@@ -194,6 +199,16 @@ def _mds_layer(state):
     v_lo = v_lo_part + b
     carry = E.from_bool(E.lt(v_lo, v_lo_part))
     return gl._reduce128(E.shr(a, 32) + carry, v_lo)
+
+
+def _host_circ(x: np.ndarray) -> np.ndarray:
+    """circ(FAST_MDS_ROW) + diag(MDS_DIAG) applied to numpy u64 rows of
+    words below 2^32 (the small-MDS form only), exact."""
+    key = ("mds_f64", "host")
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(_constants()[1].T.astype(np.float64))
+    out = torch.from_numpy(x.astype(np.float64)) @ _TABLES[key]
+    return out.numpy().astype(np.uint64)
 
 
 def _permute_plain(state):

@@ -11,8 +11,8 @@ at zeta (`evaluate_composition_at_zeta`, which runs the identical
 
 Constraint evaluation is row-local (lv/nv only), so a block needs just
 `blowup` halo rows. The block height is chosen from the device's free
-memory: the eval of a wide AIR holds a few dozen [B, width] int64
-temporaries at its peak.
+memory: the eval of a wide AIR holds about five [B, width] int64 words
+per committed cell at its peak (`_TEMPS_PER_CELL`).
 """
 
 from __future__ import annotations
@@ -27,9 +27,14 @@ from .config import StarkConfig
 from .consumer import ConstraintConsumer
 from .field_expr import PublicInputsView, RowView, Val
 
-# live int64 temporaries per committed cell at the eval's peak (estimate
-# used only to size row blocks)
-_TEMPS_PER_CELL = 24
+# live int64 words per committed cell of a row block at the eval's peak,
+# used only to size row blocks: 1.5x the larger of two measurements on an
+# NVIDIA H100 80GB HBM3 (700.00 W), chip_smoke.py's composition probe, peak
+# device memory above the composition's start over 8 * rows * (trace + aux
+# columns): G2ExpAir(128) 5.44 (2 blocks of 65536 x 1558), Fq12ExpAir(128)
+# 4.41 (16 blocks of 8192 x 7084). The estimate it replaces, 24, cut
+# Fq12ExpAir(128)'s composition into 16 blocks.
+_TEMPS_PER_CELL = 9
 # row-block budget on the CPU, bytes
 CPU_BLOCK_BYTES = 1 << 28
 

@@ -96,7 +96,7 @@ def test_native_chains_raise_on_bad_input():
     a = np.zeros((1, 16), dtype=np.uint64)
     flags = np.zeros(4, dtype=np.uint8), np.zeros((1, 4), dtype=np.uint8)
     with pytest.raises(ValueError, match="unknown chain"):
-        native.exp_chain("fq12_exp_chain", a, a, *flags, main, 0, 32)
+        native.exp_chain("fq6_exp_chain", a, a, *flags, main, 0, 32)
     with pytest.raises(ValueError, match="past the row"):
         native.exp_chain("fq_exp_chain", a, a, *flags, main, 0, 100)
     with pytest.raises(ValueError, match="C-contiguous"):
