@@ -35,7 +35,10 @@ lines; any failure raises and the exit code is non-zero:
    (its plain version over 64-column blocks), and the quotient's [2^21, 2]
    inverse and [2^21, 4] forward; K2 at the north-star leaves [2^21,
    404/390]; the u16 path's shapes (1165 trace, 1528 aux columns) under
-   K1 and K2, the parity path's leaves (404, 390) under K3; K3's parity grind from a
+   K1 and K2, the parity path's leaves (404, 390) under K3; the sharded
+   phase's per-shard shapes (K1 [65536, 101] / [65536, 98] inverse read in
+   place from 404 / 392 columns and [131072, 101] / [131072, 98] forward;
+   K2 and K3 over row shards [32768, 404] / [32768, 390]); K3's parity grind from a
    random base state at every nonce slot 0-7 (and a batch with no hit), at
    16 bits and 2^18 states, against its plain version, the default grind
    timed again after it;
@@ -100,6 +103,19 @@ lines; any failure raises and the exit code is non-zero:
    the bytes of a sequential prove of its batch and verify; the steady and
    fill rates beside the serial num_io / (tracegen + prove) of the same
    batches;
+11b. sharded: the g1 statement over a mesh of SHARDS (4) shards of the one
+   card (parallel.sharded.make_mesh(4, device=cuda:0)) under the keccak
+   config and under the Poseidon config: each first prove with the kernel
+   counts and the shard counters reset just before and read just after (K1
+   and the leaf hasher, K2 or K3, launched on every shard of both sharded
+   commits), its bytes equal to the single prove's (g1's; the parity
+   phase's g1-poseidon), verified; a tampered opening rejected; one more
+   keccak prove timed with its phases against g1's, the collectives' calls
+   and bytes, peak device memory; graft_entry.entry() on the card against
+   its plain path; graft_entry.dryrun_multichip(8, device=cuda:0) (its
+   G1ExpAir(16) prove and verify included); prove_pipelined of the first
+   two g1-pipelined batches over 2 shards, each proof its sequential
+   prove's bytes;
 12. fq12: the Fq12 multi-exponentiation entry point,
    prove_fq12_multiexp(xs, exps) with 128 terms under its default config
    (standard_fast_config(), Poseidon leaves), which proves Fq12ExpAir(128)
@@ -193,6 +209,9 @@ FQ_EXP_SHAPES = ((1 << 16, 164), 152)
 G2_SHAPES = ((1 << 16, 788), 770)
 EXP_WARM_PROVES = 2  # the fq and g2 phases' prove_s is their median
 PIPE_BATCHES = 4  # bench.py's n_pipe
+SHARDS = 4  # the sharded phase's mesh: 4 shards of the one card
+PIPE_MESH_SHARDS = 2  # prove_pipelined's mesh there
+DRYRUN_SHARDS = 8  # graft_entry.dryrun_multichip's
 FQ12_NUM_IO = 128  # Fq12ExpAir(128): 128 terms x 512 rows
 FQ12_SHAPES = ((1 << 16, 4412), 2672)
 FQ12_U64_NUM_IO = 512  # Fq12ExpU64Air(512): 512 terms x 128 rows
@@ -236,8 +255,6 @@ POSEIDON_PATHS = ("g1_poseidon", "fq12")
 # the quotient's transforms ([131072, 2] inverse, [131072, 4] forward at
 # 65536 rows) and the FRI final polynomial's
 NARROW_NTT_SHAPES = [(131072, 2), (131072, 4), (131072,), (65536, 4)]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-INT32_LANES_PER_SM = 64
 
 KERNELS = {  # name -> (module attribute holding the launch count, source, replaces)
     "ntt": ("ntt", "starky_bn254_tpu_torch/csrc/ntt.cu",
@@ -425,52 +442,6 @@ def check_equal(name, got, want) -> float:
     return err
 
 
-class Bounds:
-    """A kernel's least time on this card: its compulsory bytes (each input
-    read once, each output written once) over the HBM rate, or the integer
-    instructions of the work its function needs over the int32 rate,
-    whichever is larger. The work is counted in field operations (one
-    multiply, one add or subtract of canonical words, one Poseidon MDS
-    layer, one Keccak round), each as many instructions as its probe in
-    csrc/sass_probes.cu; a kernel's own index arithmetic, loads and
-    redundant operations are not work."""
-
-    def __init__(self, sms: int, sm_clock_mhz: float, ops: dict[str, int]):
-        self.int_ops_per_s = sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
-        self.ops = ops
-        mul, add = ops["probe_gl_mul"], ops["probe_add_canonical"]
-        # 30 rounds of 12 round-constant adds and one MDS layer; an S-box
-        # (x^7: 4 multiplies) on 12 lanes in the 8 full rounds, on 1 in the 22 partial
-        self.perm = 30 * (12 * add + ops["probe_poseidon_mds"]) + (8 * 12 + 22) * 4 * mul
-
-    def __call__(self, nbytes: float, ops: float) -> dict:
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / self.int_ops_per_s * 1e3
-        return dict(bound_ms=max(by_bytes, by_ops),
-                    bound_by="bytes" if by_bytes >= by_ops else "operations",
-                    bytes=nbytes, int_ops=ops)
-
-    def ntt(self, n: int, c: int, inverse: bool) -> dict:
-        """n/2 * log2(n) butterflies a column, each an add and a subtract,
-        and a multiply unless its twiddle is 1: the j = 0 butterfly of each
-        block of each stage, n - 1 of them. The inverse's 1/n is a multiply
-        a word."""
-        log_n = n.bit_length() - 1
-        butterflies = n // 2 * log_n
-        ops = c * (butterflies * (self.ops["probe_add_canonical"] + self.ops["probe_sub_canonical"])
-                   + (butterflies - (n - 1)) * self.ops["probe_gl_mul"])
-        if inverse:
-            ops += n * c * self.ops["probe_gl_mul"]
-        return self(16 * n * c + 8 * n, ops)  # + the twiddle table
-
-    def keccak(self, rows: int, width: int) -> dict:
-        perms = width // 17 + 1  # full chunks + the padded block
-        return self(8 * rows * (width + 4), rows * perms * 24 * self.ops["probe_keccak_round"])
-
-    def poseidon(self, rows: int, perms_per_row: int, words_in: int, words_out: int) -> dict:
-        return self(8 * rows * (words_in + words_out), rows * perms_per_row * self.perm)
-
-
 def show(label: str, r: dict) -> None:
     plain = f", plain {r['plain_ms']:.3f} ms" if r.get("plain_ms") is not None else ""
     print(f"kernels: {label}: kernel {r['ms']:.3f} ms{plain}; bound {r['bound_ms']:.3f} ms "
@@ -542,6 +513,7 @@ def phase_build(sms: int, clock_mhz: float) -> tuple[Bounds, float]:
     from concurrent.futures import ThreadPoolExecutor
 
     from starky_bn254_tpu_torch import cuda_lib, native
+    from starky_bn254_tpu_torch.utils.bounds import Bounds
 
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         native_job = pool.submit(_timed, native.build)
@@ -687,6 +659,8 @@ def phase_kernels(dev, bounds: Bounds) -> dict:
     out["poseidon_sponge_and_grind"] = phase_poseidon(dev, bounds, field)
     out["poseidon_sponge_and_grind"]["carried_state_shapes"] = carried_state_rows(
         "poseidon", poseidon, field, bounds)
+    for kernel, rows in sharded_shape_rows(field, words_any, bounds).items():
+        out[kernel]["sharded_shapes"] = rows
     torch.cuda.empty_cache()
     return out
 
@@ -1349,6 +1323,7 @@ def phase_g1(dev, native_build_s: float) -> dict:
                                      f"native build {native_build_s:.2f} s")
     r = drive("g1", air, trace, pi, cfg, G1_WARM_PROVES)
     reject_swapped("g1", air, trace, pi, cfg)
+    r["trace"], r["pi"] = trace, pi  # the sharded phase proves the same statement
 
     r["profile"] = profile_prove("g1", lambda: prove(air, trace, pi, cfg))
 
@@ -1674,7 +1649,7 @@ def phase_pipelined(dev) -> dict:
     fill = PIPE_BATCHES * G1_NUM_IO / pipe_s
     steady = (PIPE_BATCHES - 1) * G1_NUM_IO / (stamps[-1] - stamps[0])
 
-    gen_s, prove_s = [], []
+    gen_s, prove_s, seq_bytes = [], [], []
     for i, (inputs, proof) in enumerate(zip(batches, proofs)):
         t0 = time.perf_counter()
         trace, pi = air.generate_trace_and_pi(inputs)
@@ -1685,7 +1660,8 @@ def phase_pipelined(dev) -> dict:
         want = prove(air, trace, pi, cfg)
         torch.cuda.synchronize()
         prove_s.append(time.perf_counter() - t0)
-        if proof_to_bytes(proof) != proof_to_bytes(want):
+        seq_bytes.append(proof_to_bytes(want))
+        if proof_to_bytes(proof) != seq_bytes[-1]:
             raise AssertionError(f"g1-pipelined: proof {i} differs from the sequential prove")
         if verify(air, proof, cfg) is not True:
             raise AssertionError(f"g1-pipelined: proof {i} was not accepted")
@@ -1702,7 +1678,192 @@ def phase_pipelined(dev) -> dict:
           f"the worker alone (tracegen at STARKY_NATIVE_THREADS=2, pipe, pinned) {worker_s:.3f} s")
     print(f"g1-pipelined: launches in the pipelined run {json.dumps(launches)}")
     return dict(launches=launches, steady=steady, fill=fill, serial=serial, waits=waits,
-                worker_s=worker_s)
+                worker_s=worker_s, batches=batches, seq_bytes=seq_bytes)
+
+
+def check_shard_launches(label: str, cfg, d: int) -> list[dict]:
+    """Every sharded commit since the shard counters' reset launched K1 and
+    cfg's leaf hasher (K2 under keccak, K3 under Poseidon) on every one of
+    its d shards (parallel.sharded.SHARD_LAUNCHES)."""
+    from starky_bn254_tpu_torch.parallel import sharded
+
+    recs = [dict(r) for r in sharded.SHARD_LAUNCHES]
+    bad = [r for r in recs if r["hasher"] != cfg.fri.merkle_hash or len(r["k1"]) != d
+           or min(r["k1"]) <= 0 or min(r["leaf"]) <= 0]
+    if not recs or bad:
+        raise AssertionError(f"{label}: a sharded commit did not launch K1 and its leaf hasher on "
+                             f"every shard: {recs}")
+    return recs
+
+
+def collective_counts() -> dict:
+    from starky_bn254_tpu_torch.parallel import sharded
+
+    return {k: dict(calls=sharded.CALLS[k], bytes=sharded.BYTES[k], copy_bytes=sharded.COPY_BYTES[k])
+            for k in sharded.KINDS}
+
+
+def phase_sharded(dev, g1: dict, parity: dict, pipelined: dict) -> dict:
+    """Sharded proving on one card: G1ExpAir(128) over SHARDS shards of it
+    under the keccak config and under the Poseidon config, each first prove
+    with the kernel and shard counters reset just before and read just
+    after (K1 and the leaf hasher on every shard of every sharded commit),
+    its bytes held against the single prove of the same statement (the g1
+    phase's, the parity phase's g1-poseidon), verified; a tampered opening
+    rejected; one more keccak prove timed with its phases against g1's; the
+    graft entry on the card against its plain path; dryrun_multichip over
+    DRYRUN_SHARDS shards of the card; prove_pipelined of two g1 batches over
+    two shards, each proof equal to its sequential prove (the g1-pipelined
+    phase's)."""
+    import numpy as np
+    import torch
+
+    from starky_bn254_tpu_torch import graft_entry
+    from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
+    from starky_bn254_tpu_torch.parallel import sharded
+    from starky_bn254_tpu_torch.stark import (StarkConfig, proof_from_bytes, proof_to_bytes, prove,
+                                              prove_pipelined, verify)
+    from starky_bn254_tpu_torch.utils.timing import TimingTree
+
+    air = G1ExpAir(G1_NUM_IO)
+    trace, pi = g1.pop("trace"), g1.pop("pi")
+    mesh = sharded.make_mesh(SHARDS, device=dev)
+    keccak_cfg = StarkConfig.standard_fast_config("keccak")
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for label, cfg, want in (("sharded", keccak_cfg, proof_to_bytes(g1["proof"])),
+                             ("sharded-poseidon", StarkConfig.standard_fast_config("poseidon"),
+                              parity["g1_poseidon_bytes"])):
+        reset_launches()
+        sharded.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prove(air, trace, pi, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+        missing = [k for k in path_kernels(cfg) if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels not launched: {missing}")
+        shards = check_shard_launches(label, cfg, SHARDS)
+        coll = collective_counts()
+        if proof_to_bytes(proof) != want:
+            raise AssertionError(f"{label}: the proof over {SHARDS} shards differs from the single "
+                                 f"prove's bytes")
+        t0 = time.perf_counter()
+        if verify(air, proof, cfg) is not True:
+            raise AssertionError(f"{label}: verify did not accept the sharded proof")
+        verify_s = time.perf_counter() - t0
+        print(f"{label}: G1ExpAir({G1_NUM_IO}) over {SHARDS} shards of {dev}: "
+              f"{cfg.fri.merkle_hash} leaves, first prove {first_s:.3f} s, the single prove's "
+              f"bytes, verify_s {verify_s:.3f}; launches {json.dumps(launches)}")
+        for r in shards:
+            print(f"{label}: {r['fn']}: K1 launches per shard {r['k1']}, {r['hasher']} leaf "
+                  f"launches per shard {r['leaf']}")
+        print(f"{label}: collectives (calls, bytes between shards, bytes copied between devices) "
+              f"{json.dumps(coll)}")
+        out[label] = dict(launches=launches, first_s=first_s, verify_s=verify_s, shards=shards,
+                          collectives=coll)
+        if label == "sharded":
+            bad = proof_from_bytes(proof_to_bytes(proof))
+            bad.openings.trace_zeta[0, 0] ^= np.uint64(1)
+            expect_rejected(label, "a tampered opening", lambda: verify(air, bad, cfg))
+        del proof
+
+    tt = TimingTree("prove", dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prove(air, trace, pi, keccak_cfg, timing=tt, mesh=mesh)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    phases = _phase_ms(tt)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"sharded: prove_s {prove_s:.3f} over {SHARDS} shards of one card against the g1 "
+          f"phase's {g1['prove_s']:.3f} single; peak_device_GiB {peak_gib:.2f}")
+    print(f"sharded: warm prove phases over {SHARDS} shards against g1's median (ms)")
+    for key, ms in phases.items():
+        print(f"sharded:   {ms:9.1f}  {g1['phases'].get(key, float('nan')):9.1f}  {key}")
+    del trace
+
+    fn, args = graft_entry.entry()  # no device named: the card
+    reset_launches()
+    got = fn(*args)
+    entry_launches = launch_counts()
+    check_equal("graft_entry.entry()", got, fn(args[0].cpu()).to(dev))
+    if entry_launches["ntt"] <= 0 or entry_launches["poseidon_sponge_and_grind"] <= 0:
+        raise AssertionError(f"graft_entry.entry(): K1 and K3 not launched: {entry_launches}")
+    print(f"sharded: graft_entry.entry() on the card equals its plain path on the CPU; launches "
+          f"{json.dumps(entry_launches)}")
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(DRYRUN_SHARDS, device=dev)
+    print(f"sharded: dryrun_multichip({DRYRUN_SHARDS}, device={dev}) in "
+          f"{time.perf_counter() - t0:.3f} s: {json.dumps(dry)}")
+
+    pipe_mesh = sharded.make_mesh(PIPE_MESH_SHARDS, device=dev)
+    reset_launches()
+    sharded.reset_counters()
+    t0 = time.perf_counter()
+    proofs = prove_pipelined(air, pipelined["batches"][:2], keccak_cfg, mesh=pipe_mesh)
+    pipe_s = time.perf_counter() - t0
+    pipe_launches = launch_counts()
+    check_shard_launches("sharded-pipelined", keccak_cfg, PIPE_MESH_SHARDS)
+    for i, proof in enumerate(proofs):
+        if proof_to_bytes(proof) != pipelined["seq_bytes"][i]:
+            raise AssertionError(f"sharded-pipelined: proof {i} differs from its sequential prove")
+    print(f"sharded: prove_pipelined of 2 x G1ExpAir({G1_NUM_IO}) over {PIPE_MESH_SHARDS} shards in "
+          f"{pipe_s:.3f} s, each proof its sequential prove's bytes; launches "
+          f"{json.dumps(pipe_launches)}")
+    out.update(prove_s=prove_s, phases=phases, peak_gib=peak_gib, dryrun=dry,
+               entry_launches=entry_launches, pipelined_s=pipe_s, pipelined_launches=pipe_launches)
+    return out
+
+
+def sharded_shape_rows(field, words_any, bounds: Bounds) -> dict[str, list[dict]]:
+    """K1, K2 and K3 at the per-shard shapes of the sharded phase's G1ExpAir(128)
+    over SHARDS shards: each shard's columns (404 / 4 = 101, and 390 padded
+    to 392 / 4 = 98) interpolated at 65536 rows, read in place from the
+    whole matrix as the commit does, and extended to 131072; each row
+    shard's leaves, 131072 / 4 = 32768 rows of 404 and of 390 (a view of
+    392 columns), hashed by K2 (keccak) and K3 (Poseidon); each against its
+    plain version."""
+    from starky_bn254_tpu_torch import keccak, ntt, poseidon
+
+    rows = {"ntt": [], "keccak_sponge": [], "poseidon_sponge_and_grind": []}
+
+    def record(kernel, label, run, plain, b, shape, **extra):
+        want, plain_ms = timed_call(plain)
+        err = check_equal(label, run(), want)
+        del want
+        r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(run), plain_ms=plain_ms, **extra, **b)
+        show(label + ", equal", r)
+        rows[kernel].append({k: v for k, v in r.items() if k not in ("bytes", "int_ops")})
+
+    for width in G1_SHAPES[0][1], G1_SHAPES[1]:
+        padded = width + (-width) % SHARDS
+        c = padded // SHARDS
+        whole = field(65536, padded)
+        view = whole[:, :c]  # shard 0's columns, row stride `padded`
+        record("ntt", f"ntt [65536, {c}] inverse (shard of {padded}, in place)",
+               lambda: ntt.ntt(view, True), lambda: ntt._ntt_plain(view.contiguous(), True),
+               bounds.ntt(65536, c, True), [65536, c], inverse=True, row_stride=padded)
+        del whole, view
+        x = field(131072, c)
+        record("ntt", f"ntt [131072, {c}] forward (shard)", lambda: ntt.ntt(x),
+               lambda: ntt._ntt_plain(x), bounds.ntt(131072, c, False), [131072, c], inverse=False)
+        del x
+        n = 131072 // SHARDS
+        block = words_any(n, padded)[:, :width]
+        record("keccak_sponge", f"keccak hash_no_pad [{n}, {width}] (row shard)",
+               lambda: keccak.hash_no_pad(block),
+               lambda: keccak._sponge_plain(None, block, True, keccak.DIGEST),
+               bounds.keccak(n, width), [n, width], row_stride=padded)
+        block = field(n, padded)[:, :width]
+        record("poseidon_sponge_and_grind", f"poseidon hash_no_pad [{n}, {width}] (row shard)",
+               lambda: poseidon.hash_no_pad(block), lambda: poseidon._sponge_plain(None, block, 4),
+               bounds.poseidon(n, -(-width // poseidon.RATE), width, 4), [n, width],
+               row_stride=padded, form=poseidon._sponge_form(n))
+        del block
+    return rows
 
 
 def _ksum(rows: list[dict]) -> dict[str, int]:
@@ -2180,6 +2341,7 @@ def phase_parity(dev) -> dict:
           f"verify_s {verify_s:.3f}, accepted")
     expect_rejected("parity", "a standard_fast_config('poseidon') proof under parity_config()",
                     lambda: verify(air, default, cfg))
+    r["g1_poseidon_bytes"] = proof_to_bytes(default)  # the sharded phase's Poseidon reference
     del default
 
     fq = FqExpAir(G1_NUM_IO)
@@ -2355,6 +2517,9 @@ def main() -> int:
     pipelined = phase_pipelined(dev)
     torch.cuda.empty_cache()
     done("g1-pipelined")
+    sharded_run = phase_sharded(dev, g1, parity, pipelined)
+    torch.cuda.empty_cache()
+    done("sharded")
     fq12 = phase_fq12("fq12", False, dev)
     torch.cuda.empty_cache()
     done("fq12")
@@ -2393,6 +2558,8 @@ def main() -> int:
                    launches_parity_batch=parity["batch_launches"][name],
                    launches_u16=u16["launches"][name],
                    launches_northstar=northstar["launches"][name],
+                   launches_sharded=sharded_run["sharded"]["launches"][name],
+                   launches_sharded_poseidon=sharded_run["sharded-poseidon"]["launches"][name],
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=None, shape=r["shape"])

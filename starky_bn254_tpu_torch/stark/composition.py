@@ -14,7 +14,9 @@ Constraint evaluation is row-local (lv/nv only), so a block needs just
 memory: the eval of a wide AIR holds about five [B, width] int64 words
 per committed cell at its peak (`_TEMPS_PER_CELL`). An LDE offloaded to
 the host is read one row block (with its halo) at a time onto the prove's
-device.
+device. Over a mesh (`evaluate_composition_sharded`) each shard evaluates
+its own row block on its own device, its halo rows from its right
+neighbour.
 """
 
 from __future__ import annotations
@@ -84,6 +86,47 @@ def _emit_constraints(air: Air, lv, nv, z_lv, z_nv, pi, gammas_v, cc, ext: bool)
                        aux_offset=nc * (len(pairs) + table_aux_width(tables)))
 
 
+class _BlockEval:
+    """What the row-block eval of one device reads besides the rows: the
+    selectors over the whole LDE coset, the public inputs and the
+    challenges, on `dev`."""
+
+    def __init__(self, air: Air, public_inputs, alphas, gammas, n: int, cfg: StarkConfig,
+                 shift: int, dev: torch.device):
+        from .prover import _lde_selectors
+
+        self.air, self.pad = air, cfg.fri.blowup
+        self.sels = {
+            k: xnp.device_table(("sel", k, n, cfg.fri.rate_bits, shift), dev,
+                                lambda k=k: _lde_selectors(n, cfg.fri.rate_bits, shift)[k])
+            for k in ("z_last", "l_first", "l_last", "zh_inv")
+        }
+        self.pi = PublicInputsView(xnp.to_torch(public_inputs, dev), ext=False)
+        ref = self.sels["zh_inv"]
+        self.alphas = [xnp.as_tensor_like(a % gl.P, ref) for a in alphas]
+        self.gammas = [Val(xnp.as_tensor_like(g % gl.P, ref), False) for g in gammas]
+
+    def __call__(self, tb: torch.Tensor, zb: torch.Tensor | None, r0: int) -> torch.Tensor:
+        """[nc, B] quotient values of LDE rows r0 .. r0 + B - 1 from tb (and
+        zb), their B + pad rows on this device."""
+        B, pad, sels = tb.shape[0] - self.pad, self.pad, self.sels
+        lv = RowView(tb, ext=False, start=0, length=B)
+        nv = RowView(tb, ext=False, start=pad, length=B)
+        z_lv = z_nv = None
+        if zb is not None:
+            z_lv = RowView(zb, ext=False, start=0, length=B)
+            z_nv = RowView(zb, ext=False, start=pad, length=B)
+        cc = ConstraintConsumer(
+            [Val(a, False) for a in self.alphas],
+            z_last=Val(sels["z_last"][r0 : r0 + B], False),
+            l_first=Val(sels["l_first"][r0 : r0 + B], False),
+            l_last=Val(sels["l_last"][r0 : r0 + B], False),
+        )
+        _emit_constraints(self.air, lv, nv, z_lv, z_nv, self.pi, self.gammas, cc, ext=False)
+        zh_inv = sels["zh_inv"][r0 : r0 + B]
+        return torch.stack([gl.mul(acc.arr, zh_inv) for acc in cc.final_accs()])
+
+
 def evaluate_composition(
     air: Air,
     trace_lde: torch.Tensor,
@@ -99,44 +142,61 @@ def evaluate_composition(
 ) -> torch.Tensor:
     """Constraint composition over all LDE points: [nc, N] quotient values
     (already divided by Z_H), on `device` (default: the trace LDE's)."""
-    from .prover import _lde_selectors
-
     n_lde = trace_lde.shape[0]
     dev = trace_lde.device if device is None else torch.device(device)
     pad = cfg.fri.blowup
     width = air.num_columns + (z_lde.shape[1] if z_lde is not None else 0)
     B = block_rows or pick_block_rows(n_lde, width, dev)
-    sels = {
-        k: xnp.device_table(("sel", k, n, cfg.fri.rate_bits, shift), dev,
-                            lambda k=k: _lde_selectors(n, cfg.fri.rate_bits, shift)[k])
-        for k in ("z_last", "l_first", "l_last", "zh_inv")
-    }
-    pi = PublicInputsView(xnp.to_torch(public_inputs, dev), ext=False)
-    ref = sels["zh_inv"]
-    alphas_t = [xnp.as_tensor_like(a % gl.P, ref) for a in alphas]
-    gammas_v = [Val(xnp.as_tensor_like(g % gl.P, ref), False) for g in gammas]
-
+    block_eval = _BlockEval(air, public_inputs, alphas, gammas, n, cfg, shift, dev)
     out_blocks = []
     for r0 in range(0, n_lde, B):
         tb = xnp.on_device(_block_rows(trace_lde, r0, B + pad, n_lde), dev)
-        lv = RowView(tb, ext=False, start=0, length=B)
-        nv = RowView(tb, ext=False, start=pad, length=B)
-        z_lv = z_nv = None
-        if z_lde is not None:
-            zb = xnp.on_device(_block_rows(z_lde, r0, B + pad, n_lde), dev)
-            z_lv = RowView(zb, ext=False, start=0, length=B)
-            z_nv = RowView(zb, ext=False, start=pad, length=B)
-        cc = ConstraintConsumer(
-            [Val(a, False) for a in alphas_t],
-            z_last=Val(sels["z_last"][r0 : r0 + B], False),
-            l_first=Val(sels["l_first"][r0 : r0 + B], False),
-            l_last=Val(sels["l_last"][r0 : r0 + B], False),
-        )
-        _emit_constraints(air, lv, nv, z_lv, z_nv, pi, gammas_v, cc, ext=False)
-        zh_inv = sels["zh_inv"][r0 : r0 + B]
-        out_blocks.append(torch.stack([gl.mul(acc.arr, zh_inv) for acc in cc.final_accs()]))
-        del tb, lv, nv, z_lv, z_nv, cc
+        zb = None if z_lde is None else xnp.on_device(_block_rows(z_lde, r0, B + pad, n_lde), dev)
+        out_blocks.append(block_eval(tb, zb, r0))
+        del tb, zb
     return out_blocks[0] if len(out_blocks) == 1 else torch.cat(out_blocks, dim=1)
+
+
+def evaluate_composition_sharded(
+    mesh,
+    air: Air,
+    trace_lde,
+    z_lde,
+    public_inputs: np.ndarray,
+    alphas: list[int],
+    gammas: list[int],
+    n: int,
+    cfg: StarkConfig,
+    shift: int = gl.GENERATOR,
+) -> torch.Tensor:
+    """Constraint composition over a mesh (the JAX package's
+    evaluate_composition_sharded): trace_lde and z_lde are row-sharded
+    (parallel.sharded.RowShards, as sharded_commit_tree leaves them). Each
+    shard gets the `blowup` halo rows of its block from its right
+    neighbour by one cyclic ppermute per oracle, then evaluates its block on
+    its own device, in row blocks that fit there, with the selectors at
+    the block's global rows. The [nc, N] quotient values, equal to
+    evaluate_composition's, are gathered to the mesh's first device."""
+    from ..parallel import sharded
+
+    pad = cfg.fri.blowup
+    width = air.num_columns + (z_lde.shape[1] if z_lde is not None else 0)
+    tbs = sharded.with_halo(mesh, trace_lde.blocks, pad)
+    zbs = None if z_lde is None else sharded.with_halo(mesh, z_lde.blocks, pad)
+    outs = []
+    for k, dev in enumerate(mesh.devices):
+        block_eval = _BlockEval(air, public_inputs, alphas, gammas, n, cfg, shift, dev)
+        local = tbs[k].shape[0] - pad
+        B = pick_block_rows(local, width, dev)
+        parts = []
+        for r in range(0, local, B):
+            zb = None if zbs is None else zbs[k][r : r + B + pad]
+            parts.append(block_eval(tbs[k][r : r + B + pad], zb, trace_lde.offsets[k] + r))
+        tbs[k] = None
+        if zbs is not None:
+            zbs[k] = None
+        outs.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+    return sharded.gather(mesh, outs, mesh.devices[0], dim=1)
 
 
 def evaluate_composition_at_zeta(

@@ -51,14 +51,19 @@ def fri_prove(
     cfg: FriConfig,
     timing=None,
     inject: dict | None = None,
+    mesh=None,
 ) -> FriProof:
     """FRI over F on f_values' device. oracles: (tree, LDE) of every
     committed matrix, whose rows the queries open; an LDE may lie on the
-    host (offloaded), its tree on the device. inject: {layer size m: [m, 2]
-    weighted extension values}: a mixed-height batch adds a smaller
-    statement's opening polynomial into the running fold values when the
-    ladder reaches its size (its oracles were committed on that layer's
-    coset, stark/batch_prove.py), so the layer's commitment binds it."""
+    host (offloaded) or in row shards (parallel.sharded.RowShards), its
+    tree on the device. inject: {layer size m: [m, 2] weighted extension
+    values}: a mixed-height batch adds a smaller statement's opening
+    polynomial into the running fold values when the ladder reaches its
+    size (its oracles were committed on that layer's coset,
+    stark/batch_prove.py), so the layer's commitment binds it. mesh: a
+    parallel.sharded.Mesh; a layer of q = m/4 outputs with q a multiple of
+    4 x its size folds row-sharded over it (sharded_fri_fold), the same
+    values; every layer is committed on f_values' device."""
     from ..utils.timing import TimingTree
 
     tt = timing if timing is not None else TimingTree("fri", f_values.device)
@@ -77,6 +82,7 @@ def fri_prove(
 
     with tt.scope("commit/fold layers"):
         while m > (1 << cfg.final_poly_bits) * cfg.blowup:
+            values = xnp.on_device(values, dev)  # a sharded fold leaves its rows on the shards
             if m in inject:
                 values = gl.ext_add(values, inject.pop(m))
             q = m // ARITY
@@ -89,7 +95,12 @@ def fri_prove(
             beta = challenger.get_ext_challenge()
             w_m_inv = pow(gl.primitive_root_of_unity(m.bit_length() - 1), gl.P - 2, gl.P)
             s_inv = pow(cur_shift, gl.P - 2, gl.P)
-            values = _fold_step4(values, beta, w_m_inv, s_inv)
+            if mesh is not None and q % (ARITY * mesh.size) == 0:
+                from ..parallel.sharded import sharded_fri_fold
+
+                values = sharded_fri_fold(mesh, values, beta, w_m_inv, s_inv)
+            else:
+                values = _fold_step4(values, beta, w_m_inv, s_inv)
             cur_shift = pow(cur_shift, ARITY, gl.P)
             m = q
     if inject:
@@ -98,6 +109,7 @@ def fri_prove(
     # final polynomial: interpolate the remaining values (componentwise base
     # NTT is valid for extension values: the NTT matrix is base-field)
     with tt.scope("final poly"):
+        values = xnp.on_device(values, dev)
         coeffs_shifted = ntt.ntt(values, inverse=True)  # [m, 2]
         s_inv = pow(cur_shift, gl.P - 2, gl.P)
         unscale = gl.powers_vec(np.array([s_inv], dtype=np.uint64), m)  # host
@@ -126,8 +138,9 @@ def fri_prove(
         idx_host = torch.tensor(indices, dtype=torch.int64)
         idx = idx_host.to(dev)
         # the queried rows of each oracle, gathered where it lies (an
-        # offloaded LDE gives up its 84 rows on the host, and nothing more)
-        init_leaves = [xnp.to_numpy(mat[(idx_host % mat.shape[0]).to(mat.device)])
+        # offloaded LDE gives up its 84 rows on the host, and nothing more;
+        # row shards each give up theirs)
+        init_leaves = [xnp.to_numpy(xnp.take_rows(mat, idx_host % mat.shape[0]))
                        for _, mat in oracles]
         init_paths = [
             xnp.to_numpy(merkle.sibling_paths(idx % tree.levels[0].shape[0], tree.levels[:-1]))
@@ -183,13 +196,30 @@ def _fold4_combine(a0, a1, a2, a3, inv_x, beta_arr):
     return gl.mul(r, np.uint64(INV_ARITY))
 
 
+def _powers_host(base: int, n: int) -> np.ndarray:
+    """[1, base, ..., base^(n-1)] mod p on the host."""
+    with np.errstate(over="ignore"):  # uint64 scalar steps wrap on purpose
+        return gl.powers_vec(np.uint64(base), n)
+
+
 def _fold_step4(values: torch.Tensor, beta, w_m_inv: int, s_inv: int) -> torch.Tensor:
-    m = values.shape[0]
-    q = m // ARITY
-    v0, v1, v2, v3 = (values[k * q : (k + 1) * q] for k in range(ARITY))
+    q = values.shape[0] // ARITY
+    return _fold_quads(*(values[k * q : (k + 1) * q] for k in range(ARITY)), beta, w_m_inv, s_inv,
+                       q=q)
+
+
+def _fold_quads(v0, v1, v2, v3, beta, w_m_inv: int, s_inv: int, j0: int = 0,
+                q: int | None = None) -> torch.Tensor:
+    """Fold outputs j0 .. j0 + len(v0) - 1 of a layer of q outputs (default
+    len(v0)) from v_t = F(i^t x_j) at those j; x_j^{-1} = s^{-1} w_m^{-j},
+    w_m^{-j} read from the layer's host-built table (one per layer size and
+    device)."""
     a0, a1, a2, a3 = _dft4_terms(v0, v1, v2, v3)
-    inv_x = gl.mul(gl.powers_vec(xnp.as_tensor_like(w_m_inv, values), q), s_inv)  # x_j^{-1}
-    beta_arr = xnp.as_tensor_like(np.array(beta, dtype=np.uint64), values)
+    q = v0.shape[0] if q is None else q
+    w_pows = xnp.device_table(("fri_w_inv_pows", w_m_inv, q), v0.device,
+                              lambda: _powers_host(w_m_inv, q))
+    inv_x = gl.mul(w_pows[j0 : j0 + v0.shape[0]], s_inv)
+    beta_arr = xnp.as_tensor_like(np.array(beta, dtype=np.uint64), v0)
     return _fold4_combine(a0, a1, a2, a3, inv_x, beta_arr)
 
 

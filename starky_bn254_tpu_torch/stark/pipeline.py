@@ -40,7 +40,7 @@ from ..utils import memhygiene
 from .air import Air
 from .config import StarkConfig
 from .proof import StarkProof
-from .prover import _prove_device, prove
+from .prover import _mesh_device, _prove_device, prove
 
 _HEAD = struct.Struct("<?QQQ")  # ok, trace rows, trace columns, public inputs (or message bytes)
 
@@ -202,6 +202,7 @@ def prove_pipelined(
     cfg: StarkConfig,
     on_proof=None,
     device=None,
+    mesh=None,
 ) -> list[StarkProof]:
     """Proves one statement per input batch, overlapping batch i+1's trace
     generation (forked worker) and its copy to the card with batch i's
@@ -213,8 +214,9 @@ def prove_pipelined(
     steady rate times from the first completed proof, excluding the fill
     (batch 0's tracegen and copy have nothing to overlap with). device:
     where the proves run; None is the current CUDA device, and raises when
-    there is no card."""
-    dev = _prove_device(device)
+    there is no card. mesh: a parallel.sharded.Mesh each prove runs over
+    (prove's mesh); the traces are staged on its first device."""
+    dev = _prove_device(device) if mesh is None else _mesh_device(mesh, device)
     if not input_batches:
         return []
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -228,7 +230,7 @@ def prove_pipelined(
                 # fork first (no prefetch thread is alive here), then hand
                 # the worker to the next prefetch thread
                 prefetch = _Prefetch(_Tracegen(air, input_batches[i + 1]), dev, stream)
-            proofs.append(prove(air, trace, pi, cfg, device=dev))
+            proofs.append(prove(air, trace, pi, cfg, mesh=mesh, device=dev))
             del trace
             memhygiene.trim()
             if on_proof is not None:

@@ -37,7 +37,7 @@ from .. import merkle, ntt, xnp
 from ..challenger import Challenger
 from ..hashing import get_hasher
 from .air import Air
-from .composition import evaluate_composition
+from .composition import evaluate_composition, evaluate_composition_sharded
 from .config import StarkConfig
 from .consumer import ConstraintConsumer
 from .field_expr import RowView
@@ -254,6 +254,17 @@ def _prove_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """The device of a prove over `mesh`: its first shard's. A `device` that
+    names another raises."""
+    from ..parallel.sharded import canonical_device
+
+    dev = mesh.devices[0]
+    if device is not None and canonical_device(device) != dev:
+        raise ValueError(f"prove: device {device} is not the mesh's first device {dev}")
+    return dev
+
+
 def _trace_on(trace, dev: torch.device) -> torch.Tensor:
     """A numpy uint64 trace or an int64 tensor, as an int64 tensor on dev."""
     if isinstance(trace, torch.Tensor):
@@ -269,27 +280,35 @@ def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
 
     trace: [n, C] field elements, a numpy uint64 array or an int64 tensor
     (xnp.to_torch), moved to `device`. device: where the prover runs; None
-    is the current CUDA device, and raises when there is no card."""
+    is the current CUDA device, and raises when there is no card.
+
+    mesh: a parallel.sharded.Mesh. The trace and aux commits run sharded
+    (sharded_commit_tree: column-sharded K1, all_to_all, row-sharded leaf
+    hashing), composition row-sharded with halo rows
+    (evaluate_composition_sharded) and the FRI folds row-sharded where they
+    split; the transcript, the quotient commit, the openings, the combine
+    and the grind run on the mesh's first device, which `device`, if given,
+    must name. Every LDE stays on its shards (no offload). The proof is the
+    single-device proof, byte for byte."""
     from ..utils.timing import TimingTree
 
-    dev = _prove_device(device)
+    dev = _prove_device(device) if mesh is None else _mesh_device(mesh, device)
     holder = [_trace_on(trace, dev)]
     del trace
-    if mesh is not None:
-        raise NotImplementedError("sharded proving is not ported yet")
 
     tt = timing if timing is not None else TimingTree("prove", dev)
-    offload = offload_ldes(retained_lde_bytes(air, holder[0].shape[0], cfg))
+    offload = mesh is None and offload_ldes(retained_lde_bytes(air, holder[0].shape[0], cfg))
     with np.errstate(over="ignore"):
         challenger = Challenger(parity=cfg.fri.parity, device=dev)
-        st = _prove_statement(air, holder, public_inputs, cfg, challenger, tt, dev, offload=offload)
+        st = _prove_statement(air, holder, public_inputs, cfg, challenger, tt, dev, offload=offload,
+                              mesh=mesh)
         # FRI batch opening proof
         beta = challenger.get_ext_challenge()
         with tt.scope("opening combine"):
             f_values = st.opening_poly(beta, dev)
         with tt.scope("fri"):
             fri_proof = fri_prove(f_values, gl.GENERATOR, st.oracles(), challenger, cfg.fri,
-                                  timing=tt)
+                                  timing=tt, mesh=mesh)
         tt.finish()
     return st.proof(fri_proof)
 
@@ -363,13 +382,24 @@ def _aux_columns(air: Air, trace: torch.Tensor, gammas: list[int], tt, on_host: 
 
 def _prove_statement(air: Air, holder: list, public_inputs, cfg: StarkConfig, challenger: Challenger,
                      tt, dev: torch.device, shift: int = gl.GENERATOR, offload: bool = False,
-                     prefix: str = "") -> _Statement:
+                     prefix: str = "", mesh=None) -> _Statement:
     """One statement's commit, aux, composition, quotient and openings,
     in the transcript order PI, trace cap, gammas, aux cap, alphas,
     quotient cap, zeta, openings (prove's, and each statement's of a
     batch). holder: [the trace on dev], emptied here so that the trace is
     freed once the aux columns are built. shift: the LDE coset's shift.
-    offload: keep every LDE in host memory. prefix: of the timing scopes."""
+    offload: keep every LDE in host memory. prefix: of the timing scopes.
+    mesh: commit the trace and aux columns and compose over it (prove's
+    mesh; dev is its first device)."""
+    if mesh is None:
+        def commit_matrix(values):
+            return commit(values, cfg, offload=offload, shift=shift, device=dev)
+    else:
+        from ..parallel.sharded import sharded_commit_tree
+
+        def commit_matrix(values):
+            return sharded_commit_tree(mesh, values, cfg)
+
     trace = holder.pop()
     n, num_cols = trace.shape
     assert num_cols == air.num_columns, (num_cols, air.num_columns)
@@ -380,7 +410,7 @@ def _prove_statement(air: Air, holder: list, public_inputs, cfg: StarkConfig, ch
 
     # 1. trace commitment
     with tt.scope(prefix + "trace commit"):
-        trace_c = commit(trace, cfg, offload=offload, shift=shift)
+        trace_c = commit_matrix(trace)
     challenger.observe_cap(trace_c.tree.cap)
 
     # 2. auxiliary columns [Z | logUp | AIR-defined], committed together
@@ -392,17 +422,23 @@ def _prove_statement(air: Air, holder: list, public_inputs, cfg: StarkConfig, ch
             with tt.scope("column build"):
                 aux = [_aux_columns(air, trace, gammas, tt, offload)]
             with tt.scope("commit"):
-                z_c = commit(aux, cfg, offload=offload, shift=shift, device=dev)
+                z_c = commit_matrix(aux)
         challenger.observe_cap(z_c.tree.cap)
     del trace  # composition reads trace_c.lde
 
     # 3. constraint composition -> quotient chunks
     alphas = challenger.get_n_challenges(nc)
     with tt.scope(prefix + "constraint composition"):
-        qvals = evaluate_composition(
-            air, trace_c.lde, z_c.lde if z_c else None, pi_arr, alphas, gammas, n, cfg,
-            shift=shift, device=dev,
-        )  # [nc, N]
+        if mesh is None:
+            qvals = evaluate_composition(
+                air, trace_c.lde, z_c.lde if z_c else None, pi_arr, alphas, gammas, n, cfg,
+                shift=shift, device=dev,
+            )  # [nc, N]
+        else:
+            qvals = evaluate_composition_sharded(
+                mesh, air, trace_c.lde, z_c.lde if z_c else None, pi_arr, alphas, gammas, n, cfg,
+                shift=shift,
+            )
     with tt.scope(prefix + "quotient commit"):
         q_coeffs = ntt.interpolate_coset(qvals.T, shift)  # [N, nc]
         del qvals

@@ -61,11 +61,14 @@ def _lies_on(x: torch.Tensor, device: torch.device) -> bool:
     return x.device.type == device.type and device.index in (None, x.device.index)
 
 
-def on_device(x: torch.Tensor, device) -> torch.Tensor:
+def on_device(x, device) -> torch.Tensor:
     """x itself when it lies on `device`, else a copy there (non-blocking
-    from pinned memory). Copies from the host to a card count in H2D_BYTES."""
+    from pinned memory). Copies from the host to a card count in H2D_BYTES.
+    x may be a parallel.sharded.RowShards: its blocks are gathered there."""
     global H2D_BYTES
     device = torch.device(device)
+    if not isinstance(x, torch.Tensor):
+        return x.rows(0, x.shape[0], device)
     if _lies_on(x, device):
         return x
     if x.device.type == "cpu" and device.type == "cuda":
@@ -73,18 +76,31 @@ def on_device(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device, non_blocking=x.is_pinned())
 
 
-def row_blocks(mat: torch.Tensor, device, cells: int):
+def row_blocks(mat, device, cells: int):
     """(r0, mat[r0:r1] on `device`) over mat's rows: the whole of mat once
     when it lies on `device`, else blocks of about `cells` cells, each
-    copied there (an LDE offloaded to the host is read back block by block
-    by the consumer that needs it, never computed on where it lies)."""
+    copied there (an LDE offloaded to the host, or held in row shards, is
+    read block by block by the consumer that needs it, never computed on
+    where it lies)."""
     device = torch.device(device)
+    if not isinstance(mat, torch.Tensor):  # a parallel.sharded.RowShards
+        yield from mat.row_blocks(device, cells)
+        return
     if _lies_on(mat, device):
         yield 0, mat
         return
     rows = max(cells // max(mat.shape[1], 1), 1)
     for r0 in range(0, mat.shape[0], rows):
         yield r0, on_device(mat[r0 : r0 + rows], device)
+
+
+def take_rows(mat, idx: torch.Tensor) -> torch.Tensor:
+    """mat's rows idx (a CPU int64 tensor), gathered where they lie: on
+    mat's device, or on each row shard of a parallel.sharded.RowShards and
+    brought to the host."""
+    if not isinstance(mat, torch.Tensor):
+        return mat.take(idx)
+    return mat[idx.to(mat.device)]
 
 
 _DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
