@@ -1114,28 +1114,52 @@ def _kernels_by_name(prof) -> dict[str, list[float]]:
     return by_name
 
 
+def _busy_ns(prof, w0: int, w1: int) -> int:
+    """The union of the card's activity intervals (kernels, copies and
+    memsets, overlapping streams counted once) clipped to [w0, w1), on the
+    profiler's clock (time.time_ns())."""
+    import torch
+
+    intervals = sorted((max(e.start_ns(), w0), min(e.start_ns() + e.duration_ns(), w1))
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, w0
+    for a, b in intervals:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
 def profile_prove(label: str, run) -> dict:
-    """torch.profiler over one warm prove: kernel launches, kernel time and
-    the device busy share (kernel time over the host wall clock of the
-    prove), kernel time by name. Where the trace holds fewer launches of a
-    hand kernel than its wrapper counted, the profiler dropped events and
-    the launches and busy share are printed as lower bounds."""
+    """torch.profiler over one warm prove: kernel launches, kernel time
+    (summed, overlap counted twice) and the device busy share (the union of
+    the card's activity intervals over the host wall clock of the prove),
+    kernel time by name. Where the trace holds fewer launches of a hand
+    kernel than its wrapper counted, the profiler dropped events and the
+    launches and busy share are printed as lower bounds. The prove records
+    no spans (the port's DEVICE_TRACE would keep every profiled prove's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from starky_bn254_tpu_torch.utils import timing as tm
 
     before = launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
+        w0 = time.time_ns()
+        with tm.recording(tm.NOOP):
+            run()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        w1 = time.time_ns()
+    wall_s = (w1 - w0) / 1e9
     by_name = _kernels_by_name(prof)
     total_ms = sum(sum(v) for v in by_name.values())
     launches = sum(len(v) for v in by_name.values())
     if launches == 0:
         raise AssertionError("the profiler saw no kernel on the card during a prove")
-    busy = 100 * total_ms / (wall_s * 1e3)
+    busy = 100 * _busy_ns(prof, w0, w1) / (w1 - w0)
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, durs in ranked[:12]:
         print(f"{label}: kernel {name}: {sum(durs):.2f} ms in {len(durs)} launches")

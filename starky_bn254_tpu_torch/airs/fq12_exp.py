@@ -34,6 +34,7 @@ from ..gadgets.equals import vec_equal, vec_equal_transition
 from ..stark.air import Air
 from ..stark.field_expr import lane_concat
 from ..stark.io_rlc import RlcIoBinding
+from ..utils import timing as tm
 from ..utils.conversions import N_LIMBS, fq_to_u32_limbs, int_to_limbs, limbs_to_int
 from .g1_exp import _head, _tail
 
@@ -233,8 +234,14 @@ class Fq12ExpBase(Air):
     def generate_trace_and_pi(self, inputs, exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
         """inputs: per instance (x: Fq12, offset: Fq12, exp_val: int). exact:
         run the exact-int Fq12 gadget row by row instead of the native chain
-        (a test reference, slow)."""
+        (a test reference, slow). Spans of the current recorder
+        (utils.timing): tracegen, and under it chain, oracle check, pulses
+        and range check."""
         assert len(inputs) == self.num_io
+        with tm.span("tracegen", rows=self.ROWS_PER_BLOCK * self.num_io):
+            return self._trace_and_pi(inputs, exact)
+
+    def _trace_and_pi(self, inputs, exact: bool) -> tuple[np.ndarray, np.ndarray]:
         io, rows = self.num_io, self.ROWS_PER_BLOCK
         n = rows * io
 
@@ -248,28 +255,32 @@ class Fq12ExpBase(Air):
         # squares on the SQ_FLAG rows (the same in every instance),
         # multiplies on each instance's MUL_FLAG rows
         is_square, bits = flag_rows[0, :, self.SQ_FLAG], flag_rows[:, :, self.MUL_FLAG]
-        if exact:
-            b_val = exact_fq12_chain(inputs, is_square, bits, main)
-        else:
-            b_val = native_fq12_chain(inputs, is_square, bits, m3)
+        with tm.span("chain"):
+            if exact:
+                b_val = exact_fq12_chain(inputs, is_square, bits, main)
+            else:
+                b_val = native_fq12_chain(inputs, is_square, bits, m3)
 
-        for i, (x, off, e) in enumerate(inputs):
-            assert b_val[i].to_fq_list() == (off * x.pow(self._exponent(e))).to_fq_list(), (
-                "Fq12 trace generation mismatch vs oracle"
-            )
+        with tm.span("oracle check"):
+            for i, (x, off, e) in enumerate(inputs):
+                assert b_val[i].to_fq_list() == (off * x.pow(self._exponent(e))).to_fq_list(), (
+                    "Fq12 trace generation mismatch vs oracle"
+                )
 
-        self._generate_periodic(trace_full)
-        if self.io_binding == "pulse":
-            trace_full[:, self.start_io_pulses : self.start_lookups] = (
-                pu.generate_pulse(n, self.pulse_positions())
+        with tm.span("pulses"):
+            self._generate_periodic(trace_full)
+            if self.io_binding == "pulse":
+                trace_full[:, self.start_io_pulses : self.start_lookups] = (
+                    pu.generate_pulse(n, self.pulse_positions())
+                )
+            else:
+                trace_full[:, self.start_final_periodic : self.start_lookups] = (
+                    pu.generate_periodic_pulse_witness(trace_full[:, START_FLAGS], rows, rows - 1)
+                )
+        with tm.span("range check"):
+            trace_full[:, self.start_lookups :] = self.rc_spec.generate(
+                trace_full[:, : self.start_lookups]
             )
-        else:
-            trace_full[:, self.start_final_periodic : self.start_lookups] = (
-                pu.generate_periodic_pulse_witness(trace_full[:, START_FLAGS], rows, rows - 1)
-            )
-        trace_full[:, self.start_lookups :] = self.rc_spec.generate(
-            trace_full[:, : self.start_lookups]
-        )
 
         pi = []
         for i, (x, off, e) in enumerate(inputs):

@@ -34,6 +34,7 @@ from ..gadgets.limbs import u16_to_u32_lanes
 from ..stark.air import Air
 from ..stark.field_expr import Val, lane_concat
 from ..stark.io_rlc import RlcIoBinding
+from ..utils import timing as tm
 from ..utils.conversions import N_LIMBS, fq_to_u32_limbs, int_to_limbs
 
 NUM_MAIN = 24 * N_LIMBS + fl.NUM_FLAGS_COLS  # 398
@@ -101,8 +102,14 @@ class G1ExpAir(Air):
     ) -> tuple[np.ndarray, np.ndarray]:
         """inputs: per instance (x_point, offset_point, exp_val) with points
         as (x, y) int tuples. exact: run the exact-int Python gadgets row by
-        row instead of the native chain (a test reference, slow)."""
+        row instead of the native chain (a test reference, slow). Spans of
+        the current recorder (utils.timing): tracegen, and under it chain,
+        oracle check, pulses and range check."""
         assert len(inputs) == self.num_io
+        with tm.span("tracegen", rows=ROWS_PER_BLOCK * self.num_io):
+            return self._trace_and_pi(inputs, exact)
+
+    def _trace_and_pi(self, inputs, exact: bool) -> tuple[np.ndarray, np.ndarray]:
         io = self.num_io
         n = ROWS_PER_BLOCK * io
 
@@ -117,46 +124,50 @@ class G1ExpAir(Air):
         main = m3[:, :, :NUM_MAIN]  # strided view over the main section
         main[:, :, START_FLAGS:] = flag_rows
 
-        if exact:
-            b_pt = self._exact_chain(inputs, flag_rows, main)
-        else:
-            ax, ay = gb.points_to_limbs([p for (p, _, _) in inputs])
-            bx, by = gb.points_to_limbs([q for (_, q, _) in inputs])
-            fbx, fby = native.g1_exp_chain(
-                ax, ay, bx, by,
-                is_double=flag_rows[0, :, 2],
-                bits=flag_rows[:, :, 4],
-                main=m3,  # contiguous full-row view; writes cols [0, 384)
-                coord_off=0,
-                cells_off=4 * N_LIMBS,
-            )
-            b_pt = [gb.limbs_to_point(fbx[i], fby[i]) for i in range(io)]
+        with tm.span("chain"):
+            if exact:
+                b_pt = self._exact_chain(inputs, flag_rows, main)
+            else:
+                ax, ay = gb.points_to_limbs([p for (p, _, _) in inputs])
+                bx, by = gb.points_to_limbs([q for (_, q, _) in inputs])
+                fbx, fby = native.g1_exp_chain(
+                    ax, ay, bx, by,
+                    is_double=flag_rows[0, :, 2],
+                    bits=flag_rows[:, :, 4],
+                    main=m3,  # contiguous full-row view; writes cols [0, 384)
+                    coord_off=0,
+                    cells_off=4 * N_LIMBS,
+                )
+                b_pt = [gb.limbs_to_point(fbx[i], fby[i]) for i in range(io)]
 
         # oracle check (reference g1/exp.rs:279-285)
-        for i, (x, off, e) in enumerate(inputs):
-            expected = bn254.g1_add(bn254.g1_mul(x, e), off)
-            assert b_pt[i] == expected, "G1 trace generation mismatch vs oracle"
+        with tm.span("oracle check"):
+            for i, (x, off, e) in enumerate(inputs):
+                expected = bn254.g1_add(bn254.g1_mul(x, e), off)
+                assert b_pt[i] == expected, "G1 trace generation mismatch vs oracle"
 
         trace = trace_full[:, :NUM_MAIN]
-        trace_full[:, NUM_MAIN : NUM_MAIN + 2] = pu.generate_periodic_pulse_witness(
-            trace[:, START_FLAGS + 1],
-            2 * fl.INPUT_LIMB_BITS,
-            2 * fl.INPUT_LIMB_BITS - 2,
-        )
-        if self.io_binding == "pulse":
-            trace_full[:, self.start_io_pulses : self.start_lookups] = (
-                pu.generate_pulse(n, self.pulse_positions())
+        with tm.span("pulses"):
+            trace_full[:, NUM_MAIN : NUM_MAIN + 2] = pu.generate_periodic_pulse_witness(
+                trace[:, START_FLAGS + 1],
+                2 * fl.INPUT_LIMB_BITS,
+                2 * fl.INPUT_LIMB_BITS - 2,
             )
-        else:
-            # pin is_final itself as periodic (period 512, pulse at 511)
-            trace_full[:, self.start_final_periodic : self.start_lookups] = (
-                pu.generate_periodic_pulse_witness(
-                    trace[:, START_FLAGS], ROWS_PER_BLOCK, ROWS_PER_BLOCK - 1
+            if self.io_binding == "pulse":
+                trace_full[:, self.start_io_pulses : self.start_lookups] = (
+                    pu.generate_pulse(n, self.pulse_positions())
                 )
+            else:
+                # pin is_final itself as periodic (period 512, pulse at 511)
+                trace_full[:, self.start_final_periodic : self.start_lookups] = (
+                    pu.generate_periodic_pulse_witness(
+                        trace[:, START_FLAGS], ROWS_PER_BLOCK, ROWS_PER_BLOCK - 1
+                    )
+                )
+        with tm.span("range check"):
+            trace_full[:, self.start_lookups :] = self.rc_spec.generate(
+                trace_full[:, : self.start_lookups]
             )
-        trace_full[:, self.start_lookups :] = self.rc_spec.generate(
-            trace_full[:, : self.start_lookups]
-        )
 
         pi = []
         for i, (x, off, e) in enumerate(inputs):

@@ -39,6 +39,7 @@ import numpy as np
 from .. import goldilocks as gl
 from .. import xnp
 from ..challenger import Challenger
+from ..utils import timing as tm
 from .air import Air
 from .config import StarkConfig
 from .fri import ARITY, fri_prove, fri_verify_query_layers
@@ -89,9 +90,8 @@ def prove_batch_fri(items: list, cfg: StarkConfig, timing=None, device=None) -> 
     """items: [(air, trace [n_j, C_j], public_inputs)], each trace a numpy
     uint64 array or an int64 tensor; heights n_max / 4^k. device: where the
     prover runs; None is the current CUDA card, and raises when there is
-    none (as `prove`)."""
-    from ..utils.timing import TimingTree
-
+    none (as `prove`). timing: a utils.timing recorder (None:
+    timing.current(), inside a span "prove_batch")."""
     dev = _prove_device(device)
     n = max(trace.shape[0] for _, trace, _ in items)
     shifts = []
@@ -106,8 +106,7 @@ def prove_batch_fri(items: list, cfg: StarkConfig, timing=None, device=None) -> 
     offload = offload_ldes(sum(retained_lde_bytes(air, trace.shape[0], cfg)
                                for air, trace, _ in items))
 
-    tt = timing if timing is not None else TimingTree("prove_batch", dev)
-    with np.errstate(over="ignore"):
+    with np.errstate(over="ignore"), tm.entry(timing, "prove_batch") as tt:
         challenger = Challenger(parity=cfg.fri.parity, device=dev)
         stmts = []
         for j, ((air, trace, pi), shift) in enumerate(zip(items, shifts)):
@@ -133,11 +132,12 @@ def prove_batch_fri(items: list, cfg: StarkConfig, timing=None, device=None) -> 
         with tt.scope("shared fri"):
             fri_proof = fri_prove(f_total, gl.GENERATOR, oracles, challenger, cfg.fri, timing=tt,
                                   inject=inject)
-        tt.finish()
-    empty = FriProof(layer_caps=[], final_coeffs=np.zeros((0, 2), dtype=np.uint64), pow_nonce=0,
-                     query_rounds=[])
-    return BatchStarkProof([st.proof(fri_proof if j == 0 else empty)
-                            for j, st in enumerate(stmts)])
+        if timing is not None:
+            timing.finish()
+        empty = FriProof(layer_caps=[], final_coeffs=np.zeros((0, 2), dtype=np.uint64),
+                         pow_nonce=0, query_rounds=[])
+        return BatchStarkProof([st.proof(fri_proof if j == 0 else empty)
+                                for j, st in enumerate(stmts)])
 
 
 def verify_batch_fri(airs: list[Air], batch: BatchStarkProof, cfg: StarkConfig) -> bool:

@@ -17,6 +17,10 @@ the host is read one row block (with its halo) at a time onto the prove's
 device. Over a mesh (`evaluate_composition_sharded`) each shard evaluates
 its own row block on its own device, its halo rows from its right
 neighbour.
+
+Each row block of `evaluate_composition` is a `block` span of the current
+recorder (utils.timing) with its rows; the enclosing span (the prove's
+`constraint composition`) counts the blocks.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from .. import goldilocks as gl
 from .. import xnp
+from ..utils import timing as tm
 from .air import Air
 from .config import StarkConfig
 from .consumer import ConstraintConsumer
@@ -148,12 +153,14 @@ def evaluate_composition(
     width = air.num_columns + (z_lde.shape[1] if z_lde is not None else 0)
     B = block_rows or pick_block_rows(n_lde, width, dev)
     block_eval = _BlockEval(air, public_inputs, alphas, gammas, n, cfg, shift, dev)
+    tm.count(blocks=-(-n_lde // B))
     out_blocks = []
     for r0 in range(0, n_lde, B):
-        tb = xnp.on_device(_block_rows(trace_lde, r0, B + pad, n_lde), dev)
-        zb = None if z_lde is None else xnp.on_device(_block_rows(z_lde, r0, B + pad, n_lde), dev)
-        out_blocks.append(block_eval(tb, zb, r0))
-        del tb, zb
+        with tm.span("block", rows=min(B, n_lde - r0)):
+            tb = xnp.on_device(_block_rows(trace_lde, r0, B + pad, n_lde), dev)
+            zb = None if z_lde is None else xnp.on_device(_block_rows(z_lde, r0, B + pad, n_lde), dev)
+            out_blocks.append(block_eval(tb, zb, r0))
+            del tb, zb
     return out_blocks[0] if len(out_blocks) == 1 else torch.cat(out_blocks, dim=1)
 
 

@@ -23,6 +23,7 @@ from .. import goldilocks as gl
 from .. import merkle, ntt, poseidon, xnp
 from ..challenger import Challenger, _permute_host
 from ..hashing import get_hasher
+from ..utils import timing as tm
 from .config import FriConfig
 from .proof import FriProof, FriQueryRound
 
@@ -63,10 +64,13 @@ def fri_prove(
     stark/batch_prove.py), so the layer's commitment binds it. mesh: a
     parallel.sharded.Mesh; a layer of q = m/4 outputs with q a multiple of
     4 x its size folds row-sharded over it (sharded_fri_fold), the same
-    values; every layer is committed on f_values' device."""
-    from ..utils.timing import TimingTree
+    values; every layer is committed on f_values' device. timing: a
+    utils.timing recorder (None: timing.current(), inside a span "fri")."""
+    with tm.entry(timing, "fri") as tt:
+        return _fri_prove(f_values, shift, oracles, challenger, cfg, tt, inject, mesh)
 
-    tt = timing if timing is not None else TimingTree("fri", f_values.device)
+
+def _fri_prove(f_values, shift, oracles, challenger, cfg: FriConfig, tt, inject, mesh) -> FriProof:
     n = f_values.shape[0]
     assert n & (n - 1) == 0
     dev = f_values.device

@@ -20,6 +20,18 @@ tracegen in flight ahead of the prove loop:
   raises: there is no quiet return to a host trace.
 - `utils.memhygiene.trim()` runs at every batch boundary.
 
+Spans (utils.timing; none unless a caller set a recorder or a
+torch.profiler trace runs), each batch's tagged with its index: on the
+dispatch thread `pipeline` over the stream and under it, a batch each,
+`wait` (in `_Prefetch.get()`), `fork` (the next batch's worker and
+thread), `prove` (the parent of that prove's own spans) and `trim` (the
+trace freed, `memhygiene.trim()`); on
+the prefetch thread, a `pipeline` span a batch with `read` (the header
+wait and the pipe read), `worker tracegen` (the child's own stamps,
+sent in the pipe's header) and `copy` (the staging copy's launch; its
+device time, `device_ms`, from an event pair on the side stream, read
+once the stream has ended).
+
 Steady state holds two traces on the card (the one being proved and the
 next), ~212 MB each at the G1ExpAir(128) shape.
 """
@@ -37,12 +49,15 @@ import numpy as np
 import torch
 
 from ..utils import memhygiene
+from ..utils import timing as tm
 from .air import Air
 from .config import StarkConfig
 from .proof import StarkProof
 from .prover import _mesh_device, _prove_device, prove
 
-_HEAD = struct.Struct("<?QQQ")  # ok, trace rows, trace columns, public inputs (or message bytes)
+# ok, trace rows, trace columns, public inputs (or message bytes), the
+# child's tracegen start and end on time.time_ns()
+_HEAD = struct.Struct("<?QQQqq")
 
 
 def _child(air: Air, inputs, w: int) -> int:
@@ -55,18 +70,20 @@ def _child(air: Air, inputs, w: int) -> int:
         pass
     os.environ.setdefault("STARKY_NATIVE_THREADS", "2")
     with os.fdopen(w, "wb") as f:
+        t0 = time.time_ns()
         try:
-            trace, pi = air.generate_trace_and_pi(inputs)
+            with tm.recording(tm.NOOP):  # spans made here would never reach the parent
+                trace, pi = air.generate_trace_and_pi(inputs)
             trace = np.ascontiguousarray(trace, dtype=np.uint64)
             pi = np.ascontiguousarray(pi, dtype=np.uint64)
         except BaseException:
             import traceback
 
             msg = traceback.format_exc().encode()
-            f.write(_HEAD.pack(False, 0, 0, len(msg)))
+            f.write(_HEAD.pack(False, 0, 0, len(msg), t0, time.time_ns()))
             f.write(msg)
             return 1
-        f.write(_HEAD.pack(True, trace.shape[0], trace.shape[1], pi.shape[0]))
+        f.write(_HEAD.pack(True, trace.shape[0], trace.shape[1], pi.shape[0], t0, time.time_ns()))
         f.write(memoryview(trace).cast("B"))
         f.write(memoryview(pi).cast("B"))
     return 0
@@ -86,7 +103,8 @@ class _Tracegen:
 
     join() reads the result and reaps the child; cancel() kills and reaps
     it unless it is reaped already, so it never signals a PID that may
-    since belong to another process."""
+    since belong to another process. After join(), `stamps` holds the
+    child's tracegen start and end (time.time_ns())."""
 
     def __init__(self, air: Air, inputs):
         r, w = os.pipe()
@@ -107,6 +125,7 @@ class _Tracegen:
         self._r = os.fdopen(r, "rb")
         self._lock = threading.Lock()
         self._reaped = False
+        self.stamps: tuple[int, int] | None = None
 
     def _reap(self) -> int:
         with self._lock:
@@ -125,7 +144,8 @@ class _Tracegen:
                 raise RuntimeError(
                     f"tracegen worker {self.pid} died before writing its header "
                     f"(wait status {self._reap()})")
-            ok, rows, cols, k = _HEAD.unpack(head)
+            ok, rows, cols, k, t0, t1 = _HEAD.unpack(head)
+            self.stamps = (t0, t1)
             if not ok:
                 raise RuntimeError("tracegen worker raised:\n"
                                    + self._r.read(k).decode(errors="replace"))
@@ -153,28 +173,45 @@ class _Tracegen:
 class _Prefetch:
     """Joins a tracegen worker and stages its trace on `device` from a
     thread: on a card, a copy on `stream` from pinned memory, ended by an
-    event the prove's stream waits on."""
+    event the prove's stream waits on. Its spans go to `rec`, tagged with
+    the batch's index; with an active recorder on a card, `copy_timing`
+    holds the copy's span and its start and end events."""
 
-    def __init__(self, tracegen: _Tracegen, device: torch.device, stream):
+    def __init__(self, tracegen: _Tracegen, device: torch.device, stream, rec, batch: int):
         self._tracegen = tracegen
         self._result = None
         self._exc = None
-        self._thread = threading.Thread(target=self._run, args=(device, stream), daemon=True)
+        self.copy_timing = None
+        self._thread = threading.Thread(target=self._run, args=(device, stream, rec, batch),
+                                        daemon=True)
         self._thread.start()
 
-    def _run(self, device, stream):
+    def _run(self, device, stream, rec, batch):
         try:
-            host, pi = self._tracegen.join(pin=stream is not None)
-            if stream is None:
-                self._result = (host.to(device), pi, None)
-                return
-            with torch.cuda.stream(stream):
-                trace = host.to(device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-            self._result = (trace, pi, done)
+            with rec.span("pipeline", request=batch):
+                self._stage(device, stream, rec)
         except BaseException as e:  # raised again by get()
             self._exc = e
+
+    def _stage(self, device, stream, rec):
+        with rec.span("read"):
+            host, pi = self._tracegen.join(pin=stream is not None)
+        rec.add("worker tracegen", *self._tracegen.stamps, rows=host.shape[0])
+        if stream is None:
+            with rec.span("copy"):
+                self._result = (host.to(device), pi, None)
+            return
+        timed = rec.active
+        with rec.span("copy") as span, torch.cuda.stream(stream):
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+            trace = host.to(device, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=timed)
+            done.record(stream)
+        if timed:
+            self.copy_timing = (span, start, done)
+        self._result = (trace, pi, done)
 
     def get(self) -> tuple[torch.Tensor, np.ndarray]:
         """The staged trace, ready for the current stream, and its public
@@ -215,29 +252,42 @@ def prove_pipelined(
     (batch 0's tracegen and copy have nothing to overlap with). device:
     where the proves run; None is the current CUDA device, and raises when
     there is no card. mesh: a parallel.sharded.Mesh each prove runs over
-    (prove's mesh); the traces are staged on its first device."""
+    (prove's mesh); the traces are staged on its first device. Its spans
+    (module docstring) go to utils.timing.current()."""
     dev = _prove_device(device) if mesh is None else _mesh_device(mesh, device)
     if not input_batches:
         return []
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     proofs: list[StarkProof] = []
-    prefetch = _Prefetch(_Tracegen(air, input_batches[0]), dev, stream)
-    try:
-        for i in range(len(input_batches)):
-            trace, pi = prefetch.get()
-            prefetch = None
-            if i + 1 < len(input_batches):
-                # fork first (no prefetch thread is alive here), then hand
-                # the worker to the next prefetch thread
-                prefetch = _Prefetch(_Tracegen(air, input_batches[i + 1]), dev, stream)
-            proofs.append(prove(air, trace, pi, cfg, mesh=mesh, device=dev))
-            del trace
-            memhygiene.trim()
-            if on_proof is not None:
-                on_proof(i, time.time())
-    except BaseException:
-        # the in-flight worker must not run on unsupervised
-        if prefetch is not None:
-            prefetch.abort()
-        raise
+    copies = []
+    with tm.entry(None, "pipeline", batches=len(input_batches)) as rec:
+        prefetch = _Prefetch(_Tracegen(air, input_batches[0]), dev, stream, rec, 0)
+        try:
+            for i in range(len(input_batches)):
+                with tm.request(i):
+                    with rec.span("wait"):
+                        trace, pi = prefetch.get()
+                        if prefetch.copy_timing is not None:
+                            copies.append(prefetch.copy_timing)
+                        prefetch = None
+                    if i + 1 < len(input_batches):
+                        # fork first (no prefetch thread is alive here), then
+                        # hand the worker to the next prefetch thread
+                        with rec.span("fork"):
+                            prefetch = _Prefetch(_Tracegen(air, input_batches[i + 1]), dev,
+                                                 stream, rec, i + 1)
+                    proofs.append(prove(air, trace, pi, cfg, mesh=mesh, device=dev))
+                    with rec.span("trim"):
+                        del trace
+                        memhygiene.trim()
+                if on_proof is not None:
+                    on_proof(i, time.time())
+        except BaseException:
+            # the in-flight worker must not run on unsupervised
+            if prefetch is not None:
+                prefetch.abort()
+            raise
+    for span, start, done in copies:  # the stream has ended: read the copies' device times
+        done.synchronize()
+        span.counts["device_ms"] = start.elapsed_time(done)
     return proofs

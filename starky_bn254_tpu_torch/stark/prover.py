@@ -36,6 +36,7 @@ from .. import goldilocks as gl
 from .. import merkle, ntt, xnp
 from ..challenger import Challenger
 from ..hashing import get_hasher
+from ..utils import timing as tm
 from .air import Air
 from .composition import evaluate_composition, evaluate_composition_sharded
 from .config import StarkConfig
@@ -289,16 +290,17 @@ def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
     split; the transcript, the quotient commit, the openings, the combine
     and the grind run on the mesh's first device, which `device`, if given,
     must name. Every LDE stays on its shards (no offload). The proof is the
-    single-device proof, byte for byte."""
-    from ..utils.timing import TimingTree
+    single-device proof, byte for byte.
 
-    dev = _prove_device(device) if mesh is None else _mesh_device(mesh, device)
-    holder = [_trace_on(trace, dev)]
-    del trace
-
-    tt = timing if timing is not None else TimingTree("prove", dev)
-    offload = mesh is None and offload_ldes(retained_lde_bytes(air, holder[0].shape[0], cfg))
-    with np.errstate(over="ignore"):
+    timing: a utils.timing recorder for the prove's phases and spans (a
+    TimingTree synchronizes the card at each phase); None records into
+    timing.current(), which is a no-op unless a caller set a recorder or
+    a torch.profiler trace runs."""
+    with np.errstate(over="ignore"), tm.entry(timing, "prove") as tt:
+        dev = _prove_device(device) if mesh is None else _mesh_device(mesh, device)
+        holder = [_trace_on(trace, dev)]
+        del trace
+        offload = mesh is None and offload_ldes(retained_lde_bytes(air, holder[0].shape[0], cfg))
         challenger = Challenger(parity=cfg.fri.parity, device=dev)
         st = _prove_statement(air, holder, public_inputs, cfg, challenger, tt, dev, offload=offload,
                               mesh=mesh)
@@ -309,8 +311,11 @@ def prove(air: Air, trace, public_inputs: np.ndarray, cfg: StarkConfig,
         with tt.scope("fri"):
             fri_proof = fri_prove(f_values, gl.GENERATOR, st.oracles(), challenger, cfg.fri,
                                   timing=tt, mesh=mesh)
-        tt.finish()
-    return st.proof(fri_proof)
+        if timing is not None:
+            timing.finish()
+        proof = st.proof(fri_proof)
+        del st, f_values  # the prove's device state is freed inside its span
+        return proof
 
 
 @dataclass
@@ -373,9 +378,12 @@ def _aux_columns(air: Air, trace: torch.Tensor, gammas: list[int], tt, on_host: 
     if extra_w:
         # built on the host from one copy of the trace
         with tt.scope("rlc aux"):
-            host_trace = xnp.to_numpy(trace)
-            extra = xnp.to_torch(air.generate_aux(host_trace, gammas))
-            parts.append(extra if on_host else extra.to(trace.device))
+            with tt.span("to host", rows=trace.shape[0]):
+                host_trace = xnp.to_numpy(trace)
+            with tt.span("generate"):
+                extra = xnp.to_torch(air.generate_aux(host_trace, gammas))
+            with tt.span("to device"):
+                parts.append(extra if on_host else extra.to(trace.device))
             del host_trace, extra
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 

@@ -2,9 +2,9 @@
 the CPU: FqMulAir(256) under test_config, three batches through
 prove_pipelined against three sequential proves of the same inputs, and the
 first batch (the fixture's statement) against
-tests/fixtures/fq_mul_256_test_config.npz, which the JAX package made. An
-abort leaves no child process; cancel() after join() sends no signal; with
-no card and no device named it raises.
+tests/fixtures/fq_mul_256_test_config.npz, which the JAX package made, with
+the pipeline's spans recorded. An abort leaves no child process; cancel()
+after join() sends no signal; with no card and no device named it raises.
 """
 
 import os
@@ -18,6 +18,7 @@ from starky_bn254_tpu_torch.airs.fq_mul import FqMulAir
 from starky_bn254_tpu_torch.stark import (StarkConfig, load_proof, proof_to_bytes, prove,
                                           prove_pipelined)
 from starky_bn254_tpu_torch.stark import pipeline
+from starky_bn254_tpu_torch.utils import timing as tm
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "fq_mul_256_test_config.npz")
@@ -56,10 +57,17 @@ def _no_children() -> bool:
 
 
 def test_pipelined_proofs_equal_sequential_proves_and_the_fixture():
+    """Recorded (utils.timing), each stage once a batch with the batch's
+    index; the sequential proves beside them record nothing."""
     stamps = []
-    proofs = prove_pipelined(AIR, BATCHES, CFG, on_proof=lambda i, t: stamps.append((i, t)),
-                             device="cpu")
+    rec = tm.Recorder("stream")
+    with tm.recording(rec):
+        proofs = prove_pipelined(AIR, BATCHES, CFG, on_proof=lambda i, t: stamps.append((i, t)),
+                                 device="cpu")
     assert [i for i, _ in stamps] == [0, 1, 2]
+    for stage in ("wait", "prove", "trim", "read", "worker tracegen"):
+        requests = [s.request for s in rec.spans if s.path == "pipeline/" + stage]
+        assert sorted(requests) == [0, 1, 2], stage
     assert all(a[1] <= b[1] for a, b in zip(stamps, stamps[1:]))
     # batch 0 is the fixture's statement, whose sequential port proof is the
     # fixture's bytes (tests/test_torch_fq_mul_e2e.py)
