@@ -9,6 +9,9 @@ an edited kernel is rebuilt and an unchanged one is reused within a
 checkout. ptxas's register and spill report (-Xptxas -v) is kept beside the
 library (`ptxas_report`).
 
+Sources: K1 (ntt.cu), K2 (keccak.cu), K3 (poseidon.cu) and the field
+kernels of goldilocks.py's ops on CUDA tensors (field.cu).
+
 `sass_op_counts` compiles csrc/sass_probes.cu (one butterfly, one Keccak
 round, one Poseidon round, with the library's flags) and counts their
 integer instructions with cuobjdump: the operation counts of the kernels'
@@ -32,7 +35,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("ntt.cu", "keccak.cu", "poseidon.cu")
+SOURCES = ("ntt.cu", "keccak.cu", "poseidon.cu", "field.cu")
 HEADERS = ("goldilocks.cuh",)
 PROBES = "sass_probes.cu"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "starky_keccak_sponge": (_P, _P, _I64, _I64, _I64, _INT, _P, _INT, _P),
     "starky_poseidon_sponge": (_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _INT, _INT, _INT, _P),
     "starky_poseidon_grind": (_P, _INT, _INT, _U64, _I64, _U64, _P, _P, _P, _INT, _P, _P),
+    "starky_field_binary": (_INT, _P, _U64, _P, _U64, _P, ctypes.c_char_p, _INT, _P),
+    "starky_field_unary": (_INT, _P, _U64, _P, ctypes.c_char_p, _INT, _P),
+    "starky_field_sum": (_P, _P, ctypes.c_char_p, _I64, _I64, _INT, _P, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -182,7 +188,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream's handle on t's card, read without building a
+    torch.cuda.Stream (as torch's own kernel launchers read it): a field
+    op's launch pays this every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda_u64(name: str, *tensors: torch.Tensor) -> None:

@@ -16,8 +16,12 @@ Mixed operands are brought onto one engine by `_prep`: when any operand is
 a tensor, numpy arrays and Python / numpy scalars become int64 tensors on
 its device.
 
-The CUDA kernels use the same arithmetic on native uint64_t in
-csrc/goldilocks.cuh.
+On a CUDA tensor, `add`, `sub`, `neg`, `mul`, `mul_const` and `sum_mod`
+launch one field kernel each (csrc/field.cu, the same arithmetic on native
+uint64_t) instead of the torch engine's chain of 10-46 elementwise kernels;
+every op built on them (square, inv, the scans, the extension ops) follows.
+A CUDA operand gets the kernel or an exception, never the chain: the
+torch engine is the plain version, for CPU tensors (`_add_plain`, ...).
 
 Extension field: GF(p^2) = GF(p)[X]/(X^2 - 7), a trailing dimension of size
 2 (a[..., 0] + a[..., 1]*X).
@@ -26,11 +30,13 @@ Extension field: GF(p^2) = GF(p)[X]/(X^2 - 7), a trailing dimension of size
 from __future__ import annotations
 
 import functools
+import math
+import struct
 
 import numpy as np
 import torch
 
-from . import xnp
+from . import cuda_lib, xnp
 
 P = (1 << 64) - (1 << 32) + 1  # Goldilocks prime
 EPSILON = (1 << 32) - 1  # 2^64 mod p
@@ -144,11 +150,200 @@ def _prep(*xs):
 
 
 # ----------------------------------------------------------------------------
+# CUDA operands: one launch of csrc/field.cu per op
+# ----------------------------------------------------------------------------
+
+LAUNCHES = 0  # field-kernel launches: one per add/sub/mul/neg/mul_const/sum_mod on a CUDA operand
+
+_ADD, _SUB, _MUL = 0, 1, 2  # field.cu's binary ops
+_NEG, _MUL_CONST = 0, 1  # its unary ops
+_LAYOUT = struct.Struct("<14q")  # field.cu's FieldLayout: dims, words, sizes[4], strides[4] x 2
+_MAX_DIMS = 4
+_MAX_WORDS = 1 << 31  # the kernels index words in 32 bits
+_MASK64 = (1 << 64) - 1
+_NO_STRIDES = (0,) * _MAX_DIMS
+
+
+def _on_card(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_cuda
+
+
+def _card_operand(x, ref: torch.Tensor):
+    """An operand of an op on ref's card: (tensor, 0), or (None, word) for a
+    host scalar (a Python or numpy integer, a 0-d array or CPU tensor),
+    which the kernel takes by value. A numpy array goes to the card."""
+    if isinstance(x, torch.Tensor):
+        if x.device != ref.device:
+            if x.ndim == 0 and x.device.type == "cpu":
+                return None, int(x) & _MASK64
+            raise ValueError(f"field op: operands on {x.device} and {ref.device}")
+        if x.dtype != torch.int64:
+            raise TypeError(f"field op: expected int64 words, got {x.dtype}")
+        return x, 0
+    if isinstance(x, np.ndarray) and x.ndim:
+        return xnp.as_tensor_like(x, ref), 0
+    return None, int(x) & _MASK64
+
+
+def _layout(shape, operands) -> tuple[list[int], list[list[int] | None]]:
+    """The kernel's dims of an elementwise walk over `shape` (row-major):
+    size-1 dims dropped, and neighbours merged where every operand steps
+    through the pair as through one dim. operands: (shape, strides) of
+    each tensor, broadcast to `shape` (stride 0 along a broadcast dim), or
+    None for a host scalar. Returns (sizes, strides of each operand)."""
+    nd = len(shape)
+    full = []
+    for op in operands:
+        if op is None:
+            full.append(None)
+            continue
+        ts, st = op
+        off = nd - len(ts)
+        full.append([0] * off + [0 if ts[i] == 1 else st[i] for i in range(len(ts))])
+    sizes: list[int] = []
+    merged: list[list[int] | None] = [None if f is None else [] for f in full]
+    for i in range(nd):
+        n = shape[i]
+        if n == 1:
+            continue
+        if sizes and all(f is None or m[-1] == f[i] * n for f, m in zip(full, merged)):
+            sizes[-1] *= n
+            for f, m in zip(full, merged):
+                if f is not None:
+                    m[-1] = f[i]
+        else:
+            sizes.append(n)
+            for f, m in zip(full, merged):
+                if f is not None:
+                    m.append(f[i])
+    if not sizes:  # one word
+        return [1], [None if f is None else [0] for f in full]
+    if len(sizes) > _MAX_DIMS:
+        raise ValueError(f"field op: {len(sizes)} dims after merging, the kernels take {_MAX_DIMS}")
+    return sizes, merged
+
+
+def _pack(sizes, numel: int, sa, sb) -> bytes:
+    pad = (0,) * (_MAX_DIMS - len(sizes))
+    return _LAYOUT.pack(len(sizes), numel, *sizes, *pad, *(sa or _NO_STRIDES[: len(sizes)]),
+                        *pad, *(sb or _NO_STRIDES[: len(sizes)]), *pad)
+
+
+@functools.lru_cache(maxsize=4096)
+def _packed_layout(a, b) -> tuple[tuple, int, bytes]:
+    """(output shape, words, field.cu's layout) of an elementwise op with
+    operands a and b, each (shape, strides) or None for a host scalar: kept
+    per signature, since an AIR's eval repeats a few hundred of them
+    thousands of times."""
+    shape = tuple(torch.broadcast_shapes(*(op[0] for op in (a, b) if op is not None)))
+    numel = math.prod(shape)
+    if numel >= _MAX_WORDS:
+        raise ValueError(f"field op: {numel} words, the kernels take fewer than {_MAX_WORDS}")
+    sizes, (sa, sb) = _layout(shape, (a, b))
+    return shape, numel, _pack(sizes, numel, sa, sb)
+
+
+def _elementwise_plan(a, b):
+    """(out, words, a tensor or None, a word, b tensor or None, b word,
+    layout) of a binary op on a card; b None: a unary op."""
+    ref = a if _on_card(a) else b
+    ta, wa = _card_operand(a, ref)
+    tb, wb = (None, 0) if b is None else _card_operand(b, ref)
+    shape, numel, layout = _packed_layout(None if ta is None else (ta.shape, ta.stride()),
+                                          None if tb is None else (tb.shape, tb.stride()))
+    out = torch.empty(shape, dtype=torch.int64, device=ref.device)
+    return out, numel, ta, wa, tb, wb, layout
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _sum_layout(shape: tuple, st: tuple, axis: int, sms: int):
+    """(output shape, layout, axis length, axis stride, splits) of sum_mod on
+    a card with `sms` SMs: splits 0 walks the axis in one thread an output
+    word; splits >= 1 cuts it in that many slices of 32 x 8-thread blocks,
+    for few outputs over a long axis (fewer than one thread an output on
+    every SM)."""
+    nd = len(shape)
+    if not -nd <= axis < nd:
+        raise ValueError(f"sum_mod: axis {axis} of a {nd}-d tensor")
+    axis %= nd
+    n, red_stride = shape[axis], st[axis]
+    out_shape = shape[:axis] + shape[axis + 1 :]
+    m = math.prod(out_shape)
+    if m >= _MAX_WORDS:
+        raise ValueError(f"sum_mod: {m} output words, the kernels take fewer than {_MAX_WORDS}")
+    sizes, (sx,) = _layout(out_shape, [(out_shape, st[:axis] + st[axis + 1 :])])
+    splits = 0
+    if n >= 256 and m < sms * 256:
+        tiles = -(-m // 32)
+        splits = max(1, min(-(-n // 512), -(-4 * sms // tiles)))
+    return out_shape, _pack(sizes, m, sx, None), n, red_stride, splits
+
+
+def _launch(fn, ref: torch.Tensor, *args) -> None:
+    global LAUNCHES
+    lib = cuda_lib.lib()
+    dev = ref.device
+    if dev.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, cuda_lib.stream_of(ref))
+    else:
+        with torch.cuda.device(dev):
+            err = getattr(lib, fn)(*args, cuda_lib.stream_of(ref))
+    cuda_lib.check(err, fn)
+    LAUNCHES += 1
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _binary_cuda(op: int, a, b) -> torch.Tensor:
+    out, numel, ta, wa, tb, wb, layout = _elementwise_plan(a, b)
+    if numel:
+        _launch("starky_field_binary", out, op, _ptr(ta), wa, _ptr(tb), wb, out.data_ptr(), layout,
+                _sm_count(out.device.index))
+    return out
+
+
+def _unary_cuda(op: int, a, c: int = 0) -> torch.Tensor:
+    out, numel, ta, _, _, _, layout = _elementwise_plan(a, None)
+    if numel:
+        _launch("starky_field_unary", out, op, ta.data_ptr(), c, out.data_ptr(), layout,
+                _sm_count(out.device.index))
+    return out
+
+
+def _sum_cuda(x, axis: int) -> torch.Tensor:
+    x, _ = _card_operand(x, x)
+    out_shape, layout, n, red_stride, splits = _sum_layout(x.shape, x.stride(), axis,
+                                                           _sm_count(x.device.index))
+    out = torch.empty(out_shape, dtype=torch.int64, device=x.device)
+    m = out.numel()
+    if m:
+        scratch = None
+        if splits > 1:  # partial words, then a 32-bit counter a tile of 32 outputs
+            scratch = torch.empty(2 * splits * m + -(-m // 32), dtype=torch.int64, device=x.device)
+        _launch("starky_field_sum", out, x.data_ptr(), out.data_ptr(), layout, n, red_stride,
+                splits, _ptr(scratch))
+    return out
+
+
+# ----------------------------------------------------------------------------
 # Base field ops (branchless, canonical in / canonical out)
 # ----------------------------------------------------------------------------
 
 
 def add(a, b):
+    if _on_card(a) or _on_card(b):
+        return _binary_cuda(_ADD, a, b)
+    return _add_plain(a, b)
+
+
+def _add_plain(a, b):
     (a, b), E = _prep(a, b)
     s = a + b  # wraps mod 2^64
     s = E.where(E.lt(s, a), s + E.EPS, s)
@@ -156,6 +351,12 @@ def add(a, b):
 
 
 def sub(a, b):
+    if _on_card(a) or _on_card(b):
+        return _binary_cuda(_SUB, a, b)
+    return _sub_plain(a, b)
+
+
+def _sub_plain(a, b):
     (a, b), E = _prep(a, b)
     d = a - b
     d = E.where(E.lt(a, b), d - E.EPS, d)
@@ -163,6 +364,12 @@ def sub(a, b):
 
 
 def neg(a):
+    if _on_card(a):
+        return _unary_cuda(_NEG, a)
+    return _neg_plain(a)
+
+
+def _neg_plain(a):
     (a,), E = _prep(a)
     return E.where(a == 0, a, E.P - a)
 
@@ -196,6 +403,12 @@ def _mul128(a_lo, a_hi, b_lo, b_hi, E):
 
 def mul(a, b):
     """Full 64x64 -> 128-bit product via 32-bit halves, then reduce."""
+    if _on_card(a) or _on_card(b):
+        return _binary_cuda(_MUL, a, b)
+    return _mul_plain(a, b)
+
+
+def _mul_plain(a, b):
     (a, b), E = _prep(a, b)
     if E is _NumpyOps:
         return _mul_numpy(a, b)
@@ -237,6 +450,12 @@ def square(a):
 def mul_const(a, c: int):
     """Multiply by a small Python-int constant (c < 2^32)."""
     assert 0 <= c < (1 << 32)
+    if _on_card(a):
+        return _unary_cuda(_MUL_CONST, a, c)
+    return _mul_const_plain(a, c)
+
+
+def _mul_const_plain(a, c: int):
     (a,), E = _prep(a)
     a_lo = a & E.MASK
     a_hi = E.shr(a, 32)
@@ -365,6 +584,12 @@ def ext_from_base(a):
 def sum_mod(x, axis: int):
     """Exact modular sum along an axis: 32-bit halves summed exactly (up to
     2^32 terms), then recombined mod p."""
+    if _on_card(x):
+        return _sum_cuda(x, axis)
+    return _sum_mod_plain(x, axis)
+
+
+def _sum_mod_plain(x, axis: int):
     (x,), E = _prep(x)
     lo = xnp.sum(x & E.MASK, axis=axis)
     hi = xnp.sum(E.shr(x, 32), axis=axis)

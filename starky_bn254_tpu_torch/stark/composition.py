@@ -19,8 +19,10 @@ its own row block on its own device, its halo rows from its right
 neighbour.
 
 Each row block of `evaluate_composition` is a `block` span of the current
-recorder (utils.timing) with its rows; the enclosing span (the prove's
-`constraint composition`) counts the blocks.
+recorder (utils.timing) with its rows and its field-kernel launches
+(`field_launches`, goldilocks.LAUNCHES: one per field op on a card, 0 on
+the CPU); the enclosing span (the prove's `constraint composition`) counts
+the blocks.
 """
 
 from __future__ import annotations
@@ -157,10 +159,12 @@ def evaluate_composition(
     out_blocks = []
     for r0 in range(0, n_lde, B):
         with tm.span("block", rows=min(B, n_lde - r0)):
+            launches = gl.LAUNCHES
             tb = xnp.on_device(_block_rows(trace_lde, r0, B + pad, n_lde), dev)
             zb = None if z_lde is None else xnp.on_device(_block_rows(z_lde, r0, B + pad, n_lde), dev)
             out_blocks.append(block_eval(tb, zb, r0))
             del tb, zb
+            tm.count(field_launches=gl.LAUNCHES - launches)
     return out_blocks[0] if len(out_blocks) == 1 else torch.cat(out_blocks, dim=1)
 
 
