@@ -21,7 +21,9 @@ neighbour.
 Each row block of `evaluate_composition` is a `block` span of the current
 recorder (utils.timing) with its rows and its field-kernel launches
 (`field_launches`, goldilocks.LAUNCHES: one per field op on a card, 0 on
-the CPU); the enclosing span (the prove's `constraint composition`) counts
+the CPU), split into its children `air` (the AIR's own constraints) and
+`arguments` (permutation, logUp and the AIR's aux constraints), which count
+theirs; the enclosing span (the prove's `constraint composition`) counts
 the blocks.
 """
 
@@ -74,23 +76,31 @@ def _emit_constraints(air: Air, lv, nv, z_lv, z_nv, pi, gammas_v, cc, ext: bool)
     """AIR constraints, then over the aux block [Z | logUp | extra] the
     framework's permutation constraints, the logUp constraints and the
     AIR's own aux constraints: the one order shared by prover and verifier
-    (the JAX package's composition.py:105-122)."""
+    (the JAX package's composition.py:105-122). Spans of the current
+    recorder: `air` (air.eval) and `arguments` (the rest), each with its
+    `field_launches`."""
     from .logup import logup_constraints, table_aux_width
     from .prover import permutation_constraints
 
-    air.eval(lv, nv, pi, cc)
+    with tm.span("air"):
+        launches = gl.LAUNCHES
+        air.eval(lv, nv, pi, cc)
+        tm.count(field_launches=gl.LAUNCHES - launches)
     if z_lv is None:
         return
-    nc = len(gammas_v)
-    pairs = air.permutation_pairs()
-    tables = air.lookup_tables()
-    if pairs:
-        permutation_constraints(pairs, gammas_v, lv, nv, z_lv, z_nv, cc, ext)
-    if tables:
-        logup_constraints(tables, gammas_v, lv, nv, z_lv, z_nv, cc, aux_offset=nc * len(pairs))
-    if air.aux_extra_width():
-        air.eval_extra(lv, nv, z_lv, z_nv, gammas_v, pi, cc,
-                       aux_offset=nc * (len(pairs) + table_aux_width(tables)))
+    with tm.span("arguments"):
+        launches = gl.LAUNCHES
+        nc = len(gammas_v)
+        pairs = air.permutation_pairs()
+        tables = air.lookup_tables()
+        if pairs:
+            permutation_constraints(pairs, gammas_v, lv, nv, z_lv, z_nv, cc, ext)
+        if tables:
+            logup_constraints(tables, gammas_v, lv, nv, z_lv, z_nv, cc, aux_offset=nc * len(pairs))
+        if air.aux_extra_width():
+            air.eval_extra(lv, nv, z_lv, z_nv, gammas_v, pi, cc,
+                           aux_offset=nc * (len(pairs) + table_aux_width(tables)))
+        tm.count(field_launches=gl.LAUNCHES - launches)
 
 
 class _BlockEval:

@@ -6,8 +6,10 @@ its phases only; under torch.profiler with no recorder set a prove records
 into DEVICE_TRACE; prove_pipelined records its stages once per batch with
 the batch's index and proves what sequential proves prove (on the card too,
 with each staging copy's device time); chip_smoke's busy share counts
-overlapping activity once. A 64 x 3 AIR keeps each prove well under a
-second."""
+overlapping activity once; the G1 and G2 tracegen record their parts;
+composition's row blocks split into the AIR's constraints and the
+arguments' (on the card, with their field launches). A 64 x 3 AIR keeps
+each prove well under a second."""
 
 import os
 import sys
@@ -19,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from starky_bn254_tpu_torch import bn254
 from starky_bn254_tpu_torch import goldilocks as gl
+from starky_bn254_tpu_torch.airs.g1_exp import G1ExpAir
+from starky_bn254_tpu_torch.airs.g2_exp import G2ExpAir
 from starky_bn254_tpu_torch.stark import (Air, StarkConfig, proof_to_bytes, prove,
                                           prove_pipelined, verify)
 from starky_bn254_tpu_torch.utils import timing as tm
@@ -49,6 +54,20 @@ class FibAir(Air):
         cc.constraint(lv.col(2) - a * b)
         cc.constraint_transition(nv.col(0) - b)
         cc.constraint_transition(nv.col(1) - (a + b))
+
+
+class PairedFibAir(FibAir):
+    """FibAir with a fourth column holding the first one's values in reverse
+    order, a permutation pair: its composition has argument constraints."""
+
+    num_columns = 4
+
+    def generate_trace_and_pi(self, inputs):
+        trace, pi = super().generate_trace_and_pi(inputs)
+        return np.concatenate([trace, trace[::-1, :1]], axis=1), pi
+
+    def permutation_pairs(self):
+        return [(0, 3)]
 
 
 AIR = FibAir()
@@ -124,13 +143,13 @@ def test_timing_off_builds_nothing_and_never_synchronizes(counted):
 
 def test_a_barrier_tree_synchronizes_at_its_phases_only(counted):
     """A TimingTree reaches its barrier at its creation, its finish and both
-    ends of each phase (scope); its finer spans (composition's row blocks)
-    reach none."""
+    ends of each phase (scope); its finer spans (composition's row blocks
+    and their parts) reach none."""
     trace, pi = AIR.generate_trace_and_pi(BATCHES[0])
     tt = tm.TimingTree("prove", "cpu")
     proof = prove(AIR, trace, pi, CFG, timing=tt, device="cpu")
     assert verify(AIR, proof, CFG)
-    phases = [s for s in tt.spans if s.name != "block"]
+    phases = [s for s in tt.spans if s.name not in ("block", "air", "arguments")]
     assert counted["syncs"] == 2 + 2 * len(phases)
     flat = {s.path for s in tt.spans}
     assert {"trace commit", "constraint composition", "constraint composition/block",
@@ -182,6 +201,69 @@ def test_pipelined_stages_once_a_batch_with_its_index():
         assert 0 <= (stamps[i] - stamps[i - 1]) - parts < 20_000_000
     worker = find(rec, "pipeline/worker tracegen")
     assert all(s.start_ns < s.end_ns and s.counts["rows"] == 64 for s in worker)
+
+
+def _exp_inputs(air_cls):
+    """One instance of a G1 or G2 scalar multiplication: x, offset, scalar."""
+    gen, mul = ((bn254.G1_GEN, bn254.g1_mul) if air_cls is G1ExpAir
+                else (bn254.G2_GEN, bn254.g2_mul))
+    return [(mul(gen, 3), mul(gen, 5), 2**200 + 12345)]
+
+
+@pytest.mark.parametrize("air_cls", [G1ExpAir, G2ExpAir], ids=["g1", "g2"])
+def test_exp_tracegen_records_its_parts_in_order(air_cls, counted):
+    """An exp AIR's tracegen is a `tracegen` span with its rows and, in
+    order, its chain, oracle check, pulses and range check; with no recorder
+    it builds no span."""
+    air = air_cls(1, range_check="logup", io_binding="rlc")
+    inputs = _exp_inputs(air_cls)
+    trace, pi = air.generate_trace_and_pi(inputs)
+    assert counted["spans"] == 0
+    rec = tm.Recorder("run")
+    with tm.recording(rec):
+        got = air.generate_trace_and_pi(inputs)
+    assert np.array_equal(got[0], trace) and np.array_equal(got[1], pi)
+    (whole,) = find(rec, "tracegen")
+    assert whole.counts == {"rows": 512}
+    assert [c.name for c in whole.children] == ["chain", "oracle check", "pulses", "range check"]
+    assert all(whole.start_ns <= c.start_ns <= c.end_ns <= whole.end_ns for c in whole.children)
+
+
+def _composition_blocks(device) -> list:
+    air = PairedFibAir()
+    trace, pi = air.generate_trace_and_pi(BATCHES[0])
+    rec = tm.Recorder("run")
+    with tm.recording(rec):
+        proof = prove(air, trace, pi, CFG, device=device)
+    assert verify(air, proof, CFG)
+    blocks = find(rec, "prove/constraint composition/block")
+    assert blocks
+    for b in blocks:
+        assert [c.name for c in b.children] == ["air", "arguments"]
+        assert all("field_launches" in c.counts for c in b.children)
+    return blocks
+
+
+def test_a_composition_block_splits_into_the_airs_and_the_arguments_constraints():
+    """Each row block's children: `air` (air.eval) then `arguments` (the
+    permutation, logUp and aux constraints), each counting its field
+    launches (none on the CPU)."""
+    for b in _composition_blocks("cpu"):
+        assert b.counts["field_launches"] == 0
+        assert all(c.counts["field_launches"] == 0 for c in b.children)
+
+
+@pytest.mark.cuda
+def test_card_composition_children_count_the_blocks_field_launches():
+    """On the card the children's field launches and the block's division
+    by Z_H (one multiply a challenge) are all of the block's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    for b in _composition_blocks(torch.device("cuda", 0)):
+        air, args = b.children
+        assert air.counts["field_launches"] > 0 and args.counts["field_launches"] > 0
+        assert (air.counts["field_launches"] + args.counts["field_launches"]
+                + CFG.num_challenges == b.counts["field_launches"])
 
 
 @pytest.mark.cuda
