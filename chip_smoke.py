@@ -9,13 +9,14 @@ lines; any failure raises and the exit code is non-zero:
 
 1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
 2. build: the four kernel sources, one nvcc per source side by side, and the
-   native witness generator (g++ on native/witness.cpp) beside them, each
-   timed; ptxas's registers and spills for every kernel entry (a K3 entry
-   that spills fails the run); the integer instructions of each unit of
-   work the bounds count (a Goldilocks multiply, an add and a subtract of
-   canonical words, a Poseidon MDS layer, a Keccak round) and of a whole
-   K1 butterfly and K3 round as the kernels run them, counted in the SASS
-   of csrc/sass_probes.cu (cuobjdump);
+   native witness generator and tracegen's oracle (g++ on native/witness.cpp
+   and csrc/oracle.cpp) beside them, each timed; ptxas's registers and
+   spills for every kernel entry (a K3 entry that spills fails the run);
+   the integer instructions of each unit of work the bounds count (a
+   Goldilocks multiply, an add and a subtract of canonical words, a
+   Poseidon MDS layer, a Keccak round) and of a whole K1 butterfly and K3
+   round as the kernels run them, counted in the SASS of
+   csrc/sass_probes.cu (cuobjdump);
 3. kernels: each kernel against its plain torch version on the same inputs
    on the card, at every path's shapes (FqMulAir's, and G1ExpAir(128)'s,
    FqExpAir(128)'s, G2ExpAir(128)'s, Fq12ExpAir(128)'s and
@@ -529,20 +530,22 @@ def _timed(fn):
 
 
 def phase_build(sms: int, clock_mhz: float) -> tuple[Bounds, float]:
-    """Returns the bounds and the native library's build seconds."""
+    """Returns the bounds and the native libraries' build seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from starky_bn254_tpu_torch import cuda_lib, native
     from starky_bn254_tpu_torch.utils.bounds import Bounds
 
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
-        native_job = pool.submit(_timed, native.build)
+        native_job = pool.submit(
+            _timed, lambda: (native.build(), native.build(native.ORACLE_SOURCE)))
         path, cuda_s = _timed(lambda: (cuda_lib.build(), cuda_lib.lib())[0])
-        native_path, native_s = native_job.result()
+        native_paths, native_s = native_job.result()
     native.lib()
+    native.oracle_lib()
     print(f"build: {cuda_s:.2f} s -> {os.path.relpath(path, HERE)}")
-    print(f"build: native witness generator (g++, beside nvcc) {native_s:.2f} s -> "
-          f"{os.path.relpath(native_path, HERE)}")
+    print(f"build: native witness generator and oracle (g++, beside nvcc) {native_s:.2f} s -> "
+          + ", ".join(os.path.relpath(p, HERE) for p in native_paths))
     spilled = []
     for name, r in sorted(cuda_lib.ptxas_report().items()):
         print(f"build: ptxas {name}: {r.get('registers')} registers, {r.get('stack')} B stack, "

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import bn254, native
+from .. import native
 from ..gadgets import flags as fl
 from ..gadgets import fq12 as fq12g
 from ..gadgets import pulse as pu
@@ -35,7 +35,7 @@ from ..stark.air import Air
 from ..stark.field_expr import lane_concat
 from ..stark.io_rlc import RlcIoBinding
 from ..utils import timing as tm
-from ..utils.conversions import N_LIMBS, fq_to_u32_limbs, int_to_limbs, limbs_to_int
+from ..utils.conversions import N_LIMBS, fq_to_u32_limbs, int_to_limbs
 from .g1_exp import _head, _tail
 
 NUM_MAIN = 108 * N_LIMBS + fl.NUM_FLAGS_COLS  # 1742
@@ -51,11 +51,6 @@ def fq12_limb_array(values) -> np.ndarray:
     """Fq12 values -> [len, 12, 16] u64 limbs (the to_fq_list order)."""
     return np.array([[int_to_limbs(v) for v in f.to_fq_list()] for f in values],
                     dtype=np.uint64)
-
-
-def limbs_fq12(limbs) -> "bn254.Fq12":
-    """[12, 16] limbs -> Fq12."""
-    return bn254.Fq12.from_fq_list([limbs_to_int(limbs[k]) for k in range(12)])
 
 
 def exact_fq12_chain(inputs, is_square, bits, main) -> list:
@@ -81,16 +76,14 @@ def exact_fq12_chain(inputs, is_square, bits, main) -> list:
     return b_val
 
 
-def native_fq12_chain(inputs, is_square, bits, m3) -> list:
+def native_fq12_chain(x_limbs, off_limbs, is_square, bits, m3) -> np.ndarray:
     """The same chain in one native call over the full-row view m3 [io, rows,
-    num_columns]; writes cols [0, 108*16). Returns the final accumulators."""
-    fb = native.exp_chain(
-        "fq12_exp_chain",
-        fq12_limb_array([x for (x, _, _) in inputs]),
-        fq12_limb_array([off for (_, off, _) in inputs]),
+    num_columns], from x and offset as [io, 12, 16] limbs; writes cols
+    [0, 108*16). Returns the final accumulators' limbs [io, 12, 16]."""
+    return native.exp_chain(
+        "fq12_exp_chain", x_limbs, off_limbs,
         is_square=is_square, bits=bits, main=m3, coord_off=0, cells_off=24 * N_LIMBS,
     )
-    return [limbs_fq12(fb[i]) for i in range(len(inputs))]
 
 
 def eval_fq12_chain(cc, lv, nv, is_final, is_sq, is_mul):
@@ -256,16 +249,21 @@ class Fq12ExpBase(Air):
         # multiplies on each instance's MUL_FLAG rows
         is_square, bits = flag_rows[0, :, self.SQ_FLAG], flag_rows[:, :, self.MUL_FLAG]
         with tm.span("chain"):
+            x_limbs = fq12_limb_array([x for (x, _, _) in inputs])
+            off_limbs = fq12_limb_array([off for (_, off, _) in inputs])
             if exact:
-                b_val = exact_fq12_chain(inputs, is_square, bits, main)
+                fb = fq12_limb_array(exact_fq12_chain(inputs, is_square, bits, main))
             else:
-                b_val = native_fq12_chain(inputs, is_square, bits, m3)
+                fb = native_fq12_chain(x_limbs, off_limbs, is_square, bits, m3)
 
-        with tm.span("oracle check"):
-            for i, (x, off, e) in enumerate(inputs):
-                assert b_val[i].to_fq_list() == (off * x.pow(self._exponent(e))).to_fq_list(), (
-                    "Fq12 trace generation mismatch vs oracle"
-                )
+        # offset * x^exp of every instance in one native call, against the
+        # chain's limbs as they stand (each product is its remainder mod p)
+        with tm.span("oracle check", instances=io):
+            expected, _ = native.exp_oracle(
+                "oracle_fq12_exp", x_limbs, off_limbs,
+                [self._exponent(e) for (_, _, e) in inputs],
+            )
+            assert np.array_equal(expected, fb), "Fq12 trace generation mismatch vs oracle"
 
         with tm.span("pulses"):
             self._generate_periodic(trace_full)
@@ -283,10 +281,10 @@ class Fq12ExpBase(Air):
             )
 
         pi = []
-        for i, (x, off, e) in enumerate(inputs):
-            pi += fq12_limb_array([x, off]).reshape(-1).tolist()
+        for i, (_, _, e) in enumerate(inputs):
+            pi += x_limbs[i].reshape(-1).tolist() + off_limbs[i].reshape(-1).tolist()
             pi += self._exp_public_cells(e)
-            pi += fq12_limb_array([b_val[i]]).reshape(-1).tolist()
+            pi += fb[i].reshape(-1).tolist()
         return trace_full, np.array(pi, dtype=np.uint64)
 
     def permutation_pairs(self):

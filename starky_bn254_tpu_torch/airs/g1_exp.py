@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import bn254, native
+from .. import native
 from ..gadgets import flags as fl
 from ..gadgets import g1 as g1g
 from ..gadgets import g1_batch as gb
@@ -125,11 +125,12 @@ class G1ExpAir(Air):
         main[:, :, START_FLAGS:] = flag_rows
 
         with tm.span("chain"):
+            ax, ay = gb.points_to_limbs([p for (p, _, _) in inputs])
+            bx, by = gb.points_to_limbs([q for (_, q, _) in inputs])
             if exact:
                 b_pt = self._exact_chain(inputs, flag_rows, main)
+                fbx, fby = gb.points_to_limbs(b_pt)
             else:
-                ax, ay = gb.points_to_limbs([p for (p, _, _) in inputs])
-                bx, by = gb.points_to_limbs([q for (_, q, _) in inputs])
                 fbx, fby = native.g1_exp_chain(
                     ax, ay, bx, by,
                     is_double=flag_rows[0, :, 2],
@@ -140,11 +141,16 @@ class G1ExpAir(Air):
                 )
                 b_pt = [gb.limbs_to_point(fbx[i], fby[i]) for i in range(io)]
 
-        # oracle check (reference g1/exp.rs:279-285)
-        with tm.span("oracle check"):
-            for i, (x, off, e) in enumerate(inputs):
-                expected = bn254.g1_add(bn254.g1_mul(x, e), off)
-                assert b_pt[i] == expected, "G1 trace generation mismatch vs oracle"
+        # oracle check (reference g1/exp.rs:279-285): g1_add(g1_mul(x, e),
+        # offset) of every instance in one native call
+        with tm.span("oracle check", instances=io):
+            expected, at_infinity = native.exp_oracle(
+                "oracle_g1_exp", np.stack([ax, ay], 1), np.stack([bx, by], 1),
+                [e for (_, _, e) in inputs],
+            )
+            assert not at_infinity.any() and np.array_equal(
+                expected, np.stack([fbx, fby], 1)
+            ), "G1 trace generation mismatch vs oracle"
 
         trace = trace_full[:, :NUM_MAIN]
         with tm.span("pulses"):

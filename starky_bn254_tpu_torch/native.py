@@ -1,13 +1,15 @@
-"""ctypes bindings for the native witness generator (native/witness.cpp).
+"""ctypes bindings for the native witness generator (native/witness.cpp)
+and the exp AIRs' oracle (csrc/oracle.cpp).
 
-The C++ source at the repository root is shared with the JAX package; this
-module builds its own copy of the library from it, with
-`g++ -O3 -march=native -shared -fPIC -pthread`, at first use (never at
-import) into `_build/` next to this file. The library's name carries a
-digest of the source, the flags and the host (-march=native code is only
-valid where it was built). It is built under a temporary name and moved
-into place with `os.replace`, so processes that build at the same moment
-each see a whole library.
+The witness generator's C++ source at the repository root is shared with
+the JAX package; the oracle's is the port's own and shares no code with it
+(tracegen checks the one's outputs against the other's). This module
+builds each library, with `g++ -O3 -march=native -shared -fPIC -pthread`,
+at first use (never at import) into `_build/` next to this file. A
+library's name carries a digest of its source, the flags and the host
+(-march=native code is only valid where it was built). It is built under a
+temporary name and moved into place with `os.replace`, so processes that
+build at the same moment each see a whole library.
 
 There is no fallback: a missing compiler, a failed build or a failed load
 raises, and so does every call when the library reports a bad input.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import platform
 import shutil
@@ -29,6 +32,7 @@ from .utils.conversions import N_LIMBS
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "native", "witness.cpp")
+ORACLE_SOURCE = os.path.join(_HERE, "csrc", "oracle.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 
@@ -60,45 +64,63 @@ _SIGNATURES = {
     "fq12_exp_chain": _FIELD_CHAIN,
     "hist_u16_cols": (_U64P, _I64, _I64, _I64P, _I64, _I64P),
 }
+# the oracle's entries (no return value): n, x, offset, exponent, out[, inf]
+_ORACLE_SIGNATURES = {
+    "oracle_g1_exp": (_I64, _U64P, _U64P, _U64P, _U64P, _U8P),
+    "oracle_g2_exp": (_I64, _U64P, _U64P, _U64P, _U64P, _U8P),
+    "oracle_fq12_exp": (_I64, _U64P, _U64P, _U64P, _U64P),
+}
 
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}  # source -> loaded library
 
 
-def library_path() -> str:
+def library_path(source: str = SOURCE) -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS + (platform.machine(), platform.node())).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libwitness-{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile native/witness.cpp unless this host already has it; returns
-    the library's path. Raises on any compiler error."""
-    out = library_path()
+def build(source: str = SOURCE) -> str:
+    """Compile `source` (native/witness.cpp by default) unless this host
+    already has it; returns the library's path. Raises on any compiler
+    error."""
+    out = library_path(source)
     if os.path.exists(out):
         return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native witness generator cannot be built")
+        raise RuntimeError(f"g++ not found: {source} cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}"
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    r = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"g++ failed ({r.returncode}) building {SOURCE}:\n{r.stderr}")
+        raise RuntimeError(f"g++ failed ({r.returncode}) building {source}:\n{r.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        so = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+def _load(source: str, signatures: dict, restype) -> ctypes.CDLL:
+    so = _LIBS.get(source)
+    if so is None:
+        so = ctypes.CDLL(build(source))
+        for name, argtypes in signatures.items():
             fn = getattr(so, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int64
-        _LIB = so
-    return _LIB
+            fn.restype = restype
+        _LIBS[source] = so
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The witness generator (native/witness.cpp)."""
+    return _load(SOURCE, _SIGNATURES, ctypes.c_int64)
+
+
+def oracle_lib() -> ctypes.CDLL:
+    """The exp AIRs' oracle (csrc/oracle.cpp)."""
+    return _load(ORACLE_SOURCE, _ORACLE_SIGNATURES, None)
 
 
 def _ptr(arr: np.ndarray, ctype):
@@ -304,3 +326,71 @@ def hist_u16_cols(view: np.ndarray, cols) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"hist_u16_cols: cell >= 2^16 at flat index {rc - 1}")
     return out
+
+
+# ------------------------------------------------------------------ oracle
+# per entry: the shape of one value in 64-bit words (x, offset and output)
+_ORACLES = {
+    "oracle_g1_exp": (2, 4),  # (x, y)
+    "oracle_g2_exp": (2, 2, 4),  # (x, y), each (c0, c1)
+    "oracle_fq12_exp": (12, 4),  # bn254.Fq12.to_fq_list order
+}
+_SHIFTS = np.array([0, 16, 32, 48], dtype=np.uint64)
+
+
+def _words(limbs: np.ndarray) -> np.ndarray:
+    """[..., 16] 16-bit limbs -> [..., 4] little-endian u64 words."""
+    v = np.asarray(limbs, dtype=np.uint64)
+    if v.shape[-1] != N_LIMBS or (v.size and int(v.max()) >= 1 << 16):
+        raise ValueError("oracle: expected [..., 16] limbs below 2^16")
+    return np.ascontiguousarray(
+        np.bitwise_or.reduce(v.reshape(*v.shape[:-1], 4, 4) << _SHIFTS, axis=-1)
+    )
+
+
+def _limbs(words: np.ndarray) -> np.ndarray:
+    """[..., 4] u64 words -> [..., 16] 16-bit limbs (u64)."""
+    v = (words[..., None] >> _SHIFTS) & np.uint64(0xFFFF)
+    return v.reshape(*words.shape[:-1], N_LIMBS)
+
+
+def exponent_words(exps) -> np.ndarray:
+    """Exponents, ints in [0, 2^256), -> [n, 4] little-endian u64 words.
+    Raises ValueError outside that range: the chains see only an
+    exponent's low 256 bits."""
+    out = np.zeros((len(exps), 4), dtype=np.uint64)
+    for i, e in enumerate(exps):
+        e = operator.index(e)
+        if not 0 <= e < 1 << 256:
+            raise ValueError(f"oracle: exponent {i} is outside [0, 2^256)")
+        out[i] = np.frombuffer(e.to_bytes(32, "little"), dtype="<u8")
+    return out
+
+
+def exp_oracle(
+    name: str,  # "oracle_g1_exp" | "oracle_g2_exp" | "oracle_fq12_exp"
+    x: np.ndarray,  # [n, *value, 16] limbs: g1 [n, 2, 16], g2 [n, 2, 2, 16], fq12 [n, 12, 16]
+    offset: np.ndarray,  # shaped like x
+    exps,  # n ints in [0, 2^256)
+) -> tuple[np.ndarray, np.ndarray]:
+    """Each instance's expected output in exact BN254 arithmetic, in one
+    native call: g1_add(g1_mul(x, e), offset), g2_add(g2_mul(x, e), offset)
+    (bn254.py's algorithms and degenerate cases) or offset * x^e over Fq12.
+    Returns (limbs shaped like x, reduced below p but where the result is
+    the offset as given; at_infinity [n] bool, never set for fq12)."""
+    if name not in _ORACLES:
+        raise ValueError(f"exp_oracle: unknown oracle {name!r}")
+    shape = _ORACLES[name]
+    xw, ow = _words(x), _words(offset)
+    n = xw.shape[0]
+    if xw.shape != (n, *shape) or ow.shape != xw.shape or len(exps) != n:
+        raise ValueError(f"{name}: x and offset must be [n, {shape[:-1]}, 16], with n exponents")
+    ew = exponent_words(exps)
+    out = np.zeros_like(xw)
+    inf = np.zeros(n, dtype=np.uint8)
+    args = [n, _ptr(xw, ctypes.c_uint64), _ptr(ow, ctypes.c_uint64), _ptr(ew, ctypes.c_uint64),
+            _ptr(out, ctypes.c_uint64)]
+    if name != "oracle_fq12_exp":
+        args.append(_ptr(inf, ctypes.c_uint8))
+    getattr(oracle_lib(), name)(*args)
+    return _limbs(out), inf.astype(bool)
